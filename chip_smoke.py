@@ -3,20 +3,29 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
-Phases, each fatal on failure:
+Two paths, each driven through the public api: UTF-8 -> UTF-16LE/BE with
+UTF-8 validation and counts, and UTF-16LE/BE -> UTF-8 with UTF-16
+validation and counts. Phases, each fatal on failure:
   1. device  - name, compute capability (must be 9.0), nvidia-smi power limit;
-  2. build   - nvcc builds csrc/*.cu into one library;
+  2. build   - nvcc builds csrc/*.cu (one process per source) into one library;
   3. parity  - every Hopper kernel against its plain torch version on the
-               card, bit for bit: each UTF-8 class, errors at tile edges,
-               at 0, at length-1 and at length, ragged lengths, LE and BE,
-               small buffers and the 64 MiB corpus;
+               card, bit for bit. UTF-8: each class, errors at tile edges,
+               at 0, at length-1 and at length, ragged lengths, LE and BE
+               output. UTF-16 (LE and BE input): each class, lone
+               surrogates at 0, at tile edges and at length-1, a high
+               surrogate at length-1 whose low is stored at length, pairs
+               straddling tile edges. Small buffers, garbage past the
+               length, and the 64 MiB corpus with and without an error;
   4. slice   - the public simdutf_tpu api with TorchImplementation("cuda")
-               installed, on the 64 MiB mixed corpus (bench.mixed_corpus),
-               against CPython's codecs and the golden tier, plus the
-               uniform classes and the zh profile; every kernel must have
-               launched during the main-path calls;
-  5. times   - device-resident kernels and the transcode against their
-               plain versions, with CUDA events.
+               installed, on the 64 MiB mixed corpus (bench.mixed_corpus)
+               and on its UTF-16LE/BE encoding, against CPython's codecs
+               and the golden tier, plus the uniform classes and the zh
+               profile; every kernel of a path must have launched during
+               that path's calls (counts reset just before, read just
+               after);
+  5. times   - device-resident kernels and both transcodes against their
+               plain versions, with CUDA events, and a torch.profiler
+               breakdown of each transcode.
 
 The last line of stdout is {"ok": true, "device": {...}}; it is printed
 only when every phase passed. Without CUDA the script exits with code 2.
@@ -36,6 +45,8 @@ CORPUS_BYTES = 64 * MIB - 4096  # bench.py's flagship size (bucket = 64 MiB)
 SEED = 20261016
 PASSES = ("census_utf8", "utf8_first_event", "utf8_count",
           "utf8_to_utf16_compose")
+PASSES16 = ("census_utf16", "utf16_first_bad", "utf16_count",
+            "utf16_to_utf8_compose")
 KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
     "census_utf8": ("simdutf_tpu_torch/csrc/census.cu",
                     "simdutf_tpu/kernels/census.py:204", []),
@@ -47,6 +58,15 @@ KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
     "utf8_to_utf16_compose": ("simdutf_tpu_torch/csrc/compose16.cu",
                               "simdutf_tpu/kernels/butterfly.py:554",
                               ["simdutf_tpu/kernels/butterfly.py:691"]),
+    "census_utf16": ("simdutf_tpu_torch/csrc/census16.cu",
+                     "simdutf_tpu/kernels/census.py:354", []),
+    "utf16_first_bad": ("simdutf_tpu_torch/csrc/utf16.cu",
+                        "simdutf_tpu/kernels/utf16_kernels.py:143", []),
+    "utf16_count": ("simdutf_tpu_torch/csrc/utf16.cu",
+                    "simdutf_tpu/kernels/utf16_kernels.py:170", []),
+    "utf16_to_utf8_compose": ("simdutf_tpu_torch/csrc/compose8.cu",
+                              "simdutf_tpu/kernels/butterfly16.py:221",
+                              ["simdutf_tpu/kernels/butterfly16.py:335"]),
 }
 
 
@@ -171,6 +191,67 @@ def parity_cases(big: int):
     return out
 
 
+def _u16(text: str):
+    """Native (little-endian) UTF-16 units of ``text``, a writable array."""
+    import numpy as np
+
+    return np.frombuffer(text.encode("utf-16-le"), np.uint16).copy()
+
+
+def parity16_cases(big: int):
+    """(name, native units, buffer size in units, garbage past the length)
+    for the UTF-16 kernel parity phase."""
+    import numpy as np
+
+    import bench
+
+    rng = np.random.default_rng(SEED + 16)
+    cases = []
+    for cls, ch in (("ascii", "a"), ("u2r", "é"), ("u3", "東"),
+                    ("astral", "\U0001f642")):
+        for size in (1, 2048 * 3 + 17, 100_003):
+            cases.append((f"{cls}-{size}", _u16(ch * size)))
+    mixed = _u16(bench.mixed_corpus(300_000).decode("utf-8", "ignore"))
+    cases.append(("mixed-300k", mixed))
+    cases.append(("empty", _u16("")))
+    # lone surrogates at 0, at the 2048-unit compose tile edges, near the
+    # end of a 20000-unit buffer
+    for pos in (0, 1, 2047, 2048, 2049, 4095, 4096, 8191, 8192, 19_999):
+        for bad in (0xD800, 0xDBFF, 0xDC00, 0xDFFF):
+            d = _u16("x" * 20_000) if pos % 2 else mixed[:20_000].copy()
+            d[pos] = bad
+            cases.append((f"lone{bad:04x}@{pos}", d))
+    # a valid pair straddling a tile edge, and a high surrogate at
+    # length-1 whose low is stored at length (the buffer holds the pair)
+    cases.append(("pair@2047", _u16("x" * 2047 + "\U0001f642" + "é" * 3000)))
+    cases.append(("hi@len-1", _u16("ab é" * 999 + "\U0001f642")))
+    # random mixtures of every class with lone surrogates
+    alphabet = ["a", " ", "é", "Ж", "東", "\U0001f642", "\U0010ffff"]
+    for t in range(30):
+        size = int(rng.integers(1, 40_000))
+        d = _u16("".join(alphabet[i]
+                         for i in rng.integers(0, len(alphabet), size)))[:size]
+        for _ in range(int(rng.integers(0, 3)) if t % 2 else 0):
+            d[int(rng.integers(0, len(d)))] = int(rng.integers(0xD800, 0xE000))
+        cases.append((f"fuzz{t}", d))
+    corpus = _u16(bench.mixed_corpus(big).decode("utf-8"))
+    cases.append(("mixed-64MiB", corpus))
+    bad = corpus.copy()
+    bad[len(bad) // 2 + 1] = 0xDC00
+    cases.append(("mixed-64MiB-err", bad))
+
+    out = []
+    for i, (name, units) in enumerate(cases):
+        n = len(units)
+        # buffer: exact, bucket-padded, or padded with garbage past length
+        pad = (0, 8, 1000 + i)[i % 3]
+        if name == "hi@len-1":  # the low half stays stored past the length
+            out.append((name, units[:-1], n, False))
+            continue
+        out.append((name, units, n + pad, i % 3 == 2))
+    return out
+
+
 # --- phases ------------------------------------------------------------------
 
 def device_phase():
@@ -265,6 +346,56 @@ def parity_phase(device, big: int = CORPUS_BYTES) -> dict:
     return errs
 
 
+def parity16_phase(device, big: int = CORPUS_BYTES) -> dict:
+    """Each UTF-16 kernel against its plain version on ``device``, LE and
+    BE input; returns the largest error seen per kernel (all must be 0)."""
+    import numpy as np
+    import torch
+
+    from simdutf_tpu_torch.kernels import census as kcen
+    from simdutf_tpu_torch.kernels import compose8 as kc8
+    from simdutf_tpu_torch.kernels import utf16_kernels as k16
+
+    errs = dict.fromkeys(PASSES16, 0)
+    cases = parity16_cases(big)
+    for name, units, n, garbage in cases:
+        L = len(units)
+        buf = np.zeros(n, np.uint16)
+        if garbage:
+            buf[:] = np.random.default_rng(L).integers(0, 1 << 16, n)
+        buf[:L] = units
+        if name == "hi@len-1":
+            buf[L] = _u16("\U0001f642")[1]
+        for be in (False, True):
+            stored = buf.byteswap() if be else buf
+            w = torch.from_numpy(stored.view(np.int16)).to(device).view(torch.uint16)
+            got = {
+                "census_utf16": (kcen.census16_bits(w, L, be),
+                                 kcen.census16_bits_ref(w, L, be)),
+                "utf16_first_bad": (k16.utf16_first_bad(w, L, be),
+                                    k16.utf16_first_bad_ref(w, L, be)),
+                "utf16_count": (
+                    tuple(k16.utf16_reduce(w, L, be, m) for m in k16._MODES),
+                    tuple(k16.utf16_reduce_ref(w, L, be, m) for m in k16._MODES)),
+                "utf16_to_utf8_compose": (kc8.to_utf8_compose(w, L, be),
+                                          kc8.to_utf8_compose_ref(w, L, be)),
+            }
+            if w.is_cuda:
+                torch.cuda.synchronize()
+            for k, (kern, plain) in got.items():
+                e = _max_err(kern, plain)
+                errs[k] = max(errs[k], e)
+                check(e == 0, f"parity {k} on {name} (n={n}, length={L}, "
+                              f"be={be}): max abs err {e}")
+            # the compose total is the utf8len count on every input
+            check(int(got["utf16_to_utf8_compose"][0][1])
+                  == int(got["utf16_count"][0][1]),
+                  f"compose total != utf8len on {name}, be={be}")
+    log(f"parity16: {len(cases)} inputs, LE and BE, every UTF-16 kernel "
+        f"bit-identical to its plain version")
+    return errs
+
+
 def slice_phase(device, big: int = CORPUS_BYTES) -> dict:
     """The public api with the port installed; returns the launch count
     of each kernel during the main-path calls."""
@@ -335,6 +466,89 @@ def slice_phase(device, big: int = CORPUS_BYTES) -> dict:
     return launches
 
 
+def slice16_phase(device, big: int = CORPUS_BYTES) -> dict:
+    """The public UTF-16 -> UTF-8 api with the port installed, on the
+    UTF-16LE/BE encoding of the 64 MiB corpus; returns the launch count of
+    each UTF-16 kernel during the main-path calls."""
+    import numpy as np
+
+    import bench
+    import simdutf_tpu as su
+    from simdutf_tpu.golden import utf16 as g16
+    from tools.gen_corpus import PROFILES
+
+    import simdutf_tpu_torch
+    from simdutf_tpu_torch.kernels import _build
+
+    su.set_active_implementation(simdutf_tpu_torch.TorchImplementation(device))
+    data = bench.mixed_corpus(big)
+    text = data.decode("utf-8")
+    le, be = text.encode("utf-16-le"), text.encode("utf-16-be")
+    units = len(le) // 2
+
+    _build.reset_launches()
+    res, out = su.convert_utf16le_to_utf8_with_errors(le)
+    val = su.validate_utf16le_with_errors(le)
+    n8 = su.utf8_length_from_utf16le(le)
+    ncp = su.count_utf16le(le)
+    launches = dict(_build.LAUNCHES)
+
+    check(res.is_ok and res.count == len(data), f"utf16le transcode {res}")
+    check(out == data, "utf16le transcode differs from the corpus bytes")
+    check(val.is_ok and val.count == units, f"validate_utf16le {val}")
+    check(n8 == len(data), f"utf8_length_from_utf16le {n8} != {len(data)}")
+    check(ncp == len(text), f"count_utf16le {ncp} != {len(text)}")
+    for k in PASSES16:
+        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the main path")
+    log(f"slice16: {units} units ({len(le)} B UTF-16LE) -> {len(data)} B, "
+        f"equal to the corpus; launches {launches}")
+
+    res, out = su.convert_utf16be_to_utf8_with_errors(be)
+    check(res.is_ok and out == data, "utf16be transcode differs from the corpus")
+    check(su.validate_utf16be_with_errors(be).count == units, "validate_utf16be")
+    check(su.utf8_length_from_utf16be(be) == len(data), "utf8_length_from_utf16be")
+    check(su.count_utf16be(be) == len(text), "count_utf16be")
+    check(su.convert_valid_utf16le_to_utf8(le) == data
+          and su.convert_valid_utf16be_to_utf8(be) == data,
+          "convert_valid_utf16*_to_utf8 differs from the corpus")
+
+    # a lone surrogate mid-buffer, at a unit that follows no high surrogate
+    bad = np.frombuffer(le, np.uint16).copy()
+    k = units * 3 // 5
+    while (bad[k - 1] & 0xFC00) == 0xD800:
+        k += 1
+    bad[k] = 0xDC00
+    g_res, g_out = g16.convert_to_utf8_with_errors(bad, False)
+    res, out = su.convert_utf16le_to_utf8_with_errors(bad.tobytes())
+    val = su.validate_utf16le_with_errors(bad.tobytes())
+    check((res.error, res.count) == (g_res.error, g_res.count) == (g_res.error, k),
+          f"injected lone surrogate: port {res} golden {g_res}")
+    check((val.error, val.count) == (g_res.error, g_res.count),
+          f"injected lone surrogate, validate: port {val} golden {g_res}")
+    check(out == g_out.tobytes()
+          and out == bad[:k].tobytes().decode("utf-16-le").encode("utf-8"),
+          "partial output is not the valid prefix")
+    res_be, out_be = su.convert_utf16be_to_utf8_with_errors(bad.byteswap().tobytes())
+    check((res_be.error, res_be.count) == (res.error, res.count) and out_be == out,
+          "big-endian injected error differs from little-endian")
+    log(f"slice16: injected lone surrogate reported as ({res.error.name}, "
+        f"{res.count}), partial output = valid prefix ({len(out)} B)")
+
+    inputs = [(c, class_corpus(ch, big // 4))
+              for c, ch in (("ascii", "a"), ("u2", "é"), ("u3", "東"),
+                            ("u4", "🙂"))]
+    inputs.append(("zh", profile_corpus(PROFILES["zh"], big // 4, SEED)))
+    for name, d in inputs:
+        w = d.decode("utf-8").encode("utf-16-le")
+        res, out = su.convert_utf16le_to_utf8_with_errors(w)
+        check(res.is_ok and out == d, f"{name}: utf16le transcode differs")
+        check(su.validate_utf16le_with_errors(w).count == len(w) // 2,
+              f"{name}: validate_utf16le")
+    log(f"slice16: classes {[n for n, _ in inputs]} at {big // 4} B of UTF-8 "
+        f"equal the corpus bytes")
+    return launches
+
+
 def cuda_ms(fn, iters: int = 10, trials: int = 7) -> float:
     """Median over trials of the mean time of ``iters`` calls, by CUDA
     events, after one warm-up call."""
@@ -355,28 +569,56 @@ def cuda_ms(fn, iters: int = 10, trials: int = 7) -> float:
     return statistics.median(times)
 
 
+def _time_pairs(pairs: dict, nbytes: int, card: str) -> dict:
+    """{name: (kernel ms, plain ms)} of each (kernel, plain) pair, timed in
+    turns; ``nbytes`` is the input size for the GB/s figures."""
+    ms = {}
+    for name, (kern, plain) in pairs.items():
+        # plain, kernel, kernel, plain: the pair shares one card and state
+        p1 = cuda_ms(plain, iters=3, trials=3)
+        k1 = cuda_ms(kern)
+        k2 = cuda_ms(kern)
+        p2 = cuda_ms(plain, iters=3, trials=3)
+        ms[name] = (statistics.median([k1, k2]), statistics.median([p1, p2]))
+        log(f"time {name}: kernel {ms[name][0]:.4f} ms "
+            f"({nbytes / ms[name][0] / 1e6:.1f} GB/s in), plain torch "
+            f"{ms[name][1]:.4f} ms ({nbytes / ms[name][1] / 1e6:.1f} GB/s in) "
+            f"[{card}]")
+    return ms
+
+
 def times_phase(card: str, big: int = CORPUS_BYTES) -> dict:
-    """ms of each kernel and of its plain version at the main path's
-    shape (the 64 MiB mixed corpus, device-resident)."""
+    """ms of each kernel and of its plain version at the main paths'
+    shapes (the 64 MiB mixed corpus, and its UTF-16LE encoding,
+    device-resident)."""
+    import numpy as np
     import torch
 
     import bench
     from simdutf_tpu_torch import impl
     from simdutf_tpu_torch.kernels import census as kcen
+    from simdutf_tpu_torch.kernels import compose8 as kc8
     from simdutf_tpu_torch.kernels import compose16 as kc
+    from simdutf_tpu_torch.kernels import utf16_kernels as k16
     from simdutf_tpu_torch.kernels import validate as kv
     from simdutf_tpu_torch.ops import utf8 as o8
-    import numpy as np
+    from simdutf_tpu_torch.ops import utf16 as o16
 
     data = bench.mixed_corpus(big)
     x, L = impl.to_device(*impl._pad(np.frombuffer(data, np.uint8)), "cuda")
+    units = np.frombuffer(data.decode("utf-8").encode("utf-16-le"), np.uint16)
+    w, U = impl.to_device(*impl._pad(units), "cuda")
     torch.cuda.synchronize()
 
     def plain_to_utf16():
         int(kcen.census_bits_ref(x, L))  # the route's one sync
         return kc.to_utf16_compose_ref(x, L, False)
 
-    pairs = {
+    def plain_to_utf8():
+        int(kcen.census16_bits_ref(w, U, False))  # the route's one sync
+        return kc8.to_utf8_compose_ref(w, U, False)
+
+    ms = _time_pairs({
         "census_utf8": (lambda: kcen.census_bits(x, L),
                         lambda: kcen.census_bits_ref(x, L)),
         "utf8_first_event": (lambda: kv.utf8_first_event_len(x, L),
@@ -387,24 +629,26 @@ def times_phase(card: str, big: int = CORPUS_BYTES) -> dict:
                                   lambda: kc.to_utf16_compose_ref(x, L, False)),
         "to_utf16 (ops.utf8, routed)": (lambda: o8.to_utf16(x, L, False),
                                         plain_to_utf16),
-    }
-    ms = {}
-    for name, (kern, plain) in pairs.items():
-        # plain, kernel, kernel, plain: the pair shares one card and state
-        p1 = cuda_ms(plain, iters=3, trials=3)
-        k1 = cuda_ms(kern)
-        k2 = cuda_ms(kern)
-        p2 = cuda_ms(plain, iters=3, trials=3)
-        ms[name] = (statistics.median([k1, k2]), statistics.median([p1, p2]))
-        log(f"time {name}: kernel {ms[name][0]:.4f} ms "
-            f"({L / ms[name][0] / 1e6:.1f} GB/s in), plain torch "
-            f"{ms[name][1]:.4f} ms ({L / ms[name][1] / 1e6:.1f} GB/s in) "
-            f"[{card}]")
+    }, L, card)
+    ms.update(_time_pairs({
+        "census_utf16": (lambda: kcen.census16_bits(w, U, False),
+                         lambda: kcen.census16_bits_ref(w, U, False)),
+        "utf16_first_bad": (lambda: k16.utf16_first_bad(w, U, False),
+                            lambda: k16.utf16_first_bad_ref(w, U, False)),
+        "utf16_count": (lambda: k16.utf16_reduce(w, U, False, "utf8len"),
+                        lambda: k16.utf16_reduce_ref(w, U, False, "utf8len")),
+        "utf16_to_utf8_compose": (lambda: kc8.to_utf8_compose(w, U, False),
+                                  lambda: kc8.to_utf8_compose_ref(w, U, False)),
+        "to_utf8 (ops.utf16, routed)": (lambda: o16.to_utf8(w, U, False),
+                                        plain_to_utf8),
+    }, 2 * U, card))
     y = torch.empty_like(x)
     copy = cuda_ms(lambda: y.copy_(x))
     log(f"time d2d copy of {x.numel()} B: {copy:.4f} ms, "
         f"{2 * x.numel() / copy / 1e6:.1f} GB/s read+write [{card}]")
     breakdown(lambda: o8.to_utf16(x, L, False), "to_utf16 (mixed 64 MiB)", card)
+    breakdown(lambda: o16.to_utf8(w, U, False),
+              f"to_utf8 (mixed 64 MiB as UTF-16LE, {U} units)", card)
     return ms
 
 
@@ -454,7 +698,9 @@ def main() -> int:
         name, card = device_phase()
         build_phase()
         errs = parity_phase("cuda")
-        launches = slice_phase("cuda")
+        errs.update(parity16_phase("cuda"))
+        launches8 = slice_phase("cuda")
+        launches16 = slice16_phase("cuda")
         ms = times_phase(card)
         check("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as exc:
@@ -463,9 +709,10 @@ def main() -> int:
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "also_replaces": KERNELS[k][2],
-         "launches": launches[k], "max_abs_err": errs[k],
+         "launches": (launches8 if k in PASSES else launches16)[k],
+         "max_abs_err": errs[k],
          "ms": ms[k][0], "plain_ms": ms[k][1]}
-        for k in PASSES
+        for k in PASSES + PASSES16
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

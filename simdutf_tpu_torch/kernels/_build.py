@@ -1,7 +1,8 @@
 """Build, load and bind the Hopper kernels in ``simdutf_tpu_torch/csrc``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface, ``build/simdutf_tpu_torch/libsimdutf_torch.so``
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` (one process per source,
+in parallel) and links them into one shared library with a plain C
+interface, ``build/simdutf_tpu_torch/libsimdutf_torch.so``
 under the checkout root, and ``ctypes`` loads it. A stamp file holds a
 digest of the sources and flags, so a changed source rebuilds and an
 unchanged one is loaded as built. Nothing here runs at import.
@@ -27,7 +28,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "simdutf_tpu_torch"
 LIB_NAME = "libsimdutf_torch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -39,6 +41,11 @@ SIGNATURES = {
     "utf8_count": (_P, _I64, _I32, _P, _P),
     "compose16_count": (_P, _I64, _I64, _I32, _P, _P, _P, _P),
     "compose16_emit": (_P, _I64, _I64, _I32, _I32, _P, _P, _P, _P),
+    "census_utf16": (_P, _I64, _I32, _P, _P),
+    "utf16_first_bad": (_P, _I64, _I32, _P, _P),
+    "utf16_count": (_P, _I64, _I32, _I32, _P, _P),
+    "compose8_count": (_P, _I64, _I32, _I32, _P, _P, _P, _P),
+    "compose8_emit": (_P, _I64, _I32, _I32, _P, _P, _P, _P),
 }
 
 #: kernel launches per wrapper name since the last :func:`reset_launches`
@@ -75,7 +82,7 @@ def _sources() -> list[Path]:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -84,7 +91,9 @@ def _digest() -> str:
 
 def build(verbose: bool = False) -> Path:
     """Compile the library unless the stamp matches the sources; returns
-    its path. A file lock serialises concurrent builds."""
+    its path. Each ``.cu`` compiles to an object in its own ``nvcc``
+    process, all started together; one more links them. A file lock
+    serialises concurrent builds."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
@@ -93,17 +102,30 @@ def build(verbose: bool = False) -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
             return lib_path
+        nvcc = _nvcc()
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = BUILD_DIR / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+            jobs.append((obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for obj, proc in jobs:  # wait for every process, failed or not
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{obj.stem}.cu ({proc.returncode}):\n{err[-3000:]}")
+            elif verbose:
+                print(err, end="")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         tmp = BUILD_DIR / (LIB_NAME + ".tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-        if verbose:
-            cmd[1:1] = ["-Xptxas", "-v"]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.run(
+            [nvcc, *LINK_FLAGS, "-o", str(tmp), *[str(o) for o, _ in jobs]],
+            capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        if verbose:
-            print(proc.stderr, end="")
+                f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
         os.replace(tmp, lib_path)
         stamp.write_text(digest)
     return lib_path
@@ -136,8 +158,18 @@ def check_bytes(b: torch.Tensor, length: int) -> str:
     """Validate a kernel input: a contiguous 1-D uint8 tensor with
     0 <= length <= its size, on the CPU or the current CUDA device.
     Returns the device type ("cpu" or "cuda")."""
-    if not isinstance(b, torch.Tensor) or b.dtype != torch.uint8:
-        raise TypeError(f"expected a torch.uint8 tensor, got {getattr(b, 'dtype', type(b))}")
+    return _check(b, length, torch.uint8)
+
+
+def check_units(w: torch.Tensor, length: int) -> str:
+    """:func:`check_bytes` for a buffer of UTF-16 code units: a contiguous
+    1-D uint16 tensor, ``length`` counted in units."""
+    return _check(w, length, torch.uint16)
+
+
+def _check(b: torch.Tensor, length: int, dtype: torch.dtype) -> str:
+    if not isinstance(b, torch.Tensor) or b.dtype != dtype:
+        raise TypeError(f"expected a {dtype} tensor, got {getattr(b, 'dtype', type(b))}")
     if b.dim() != 1 or not b.is_contiguous():
         raise ValueError("expected a contiguous 1-D tensor")
     n = b.shape[0]

@@ -1,14 +1,17 @@
-"""UTF-8 structural census: the routing bits of a buffer in one read.
+"""Structural census: the routing bits of a buffer in one read.
 
-Port of simdutf_tpu/kernels/census.census_bits (Pallas ``_census_kernel``).
-On a CUDA tensor :func:`census_bits` launches ``census_utf8``
-(csrc/census.cu); on a CPU tensor it runs :func:`census_bits_ref`.
+Port of simdutf_tpu/kernels/census.census_bits (Pallas ``_census_kernel``)
+and census16_bits (``_census16_kernel``). On a CUDA tensor
+:func:`census_bits` launches ``census_utf8`` (csrc/census.cu) and
+:func:`census16_bits` ``census_utf16`` (csrc/census16.cu); on a CPU tensor
+they run :func:`census_bits_ref` / :func:`census16_bits_ref`.
 
-The Hopper kernel's floor is HBM bytes, one streaming read of the
-in-range bytes, 16 per thread per step, OR-reduced per warp into one
-atomic; this first version is bound by its per-byte checks (PERF.md).
-The TPU kernel's bitcast word geometry (mod-3 lane masks) is a TPU layout
-device; the port takes the positional classes from the flat byte
+Both Hopper kernels' floor is HBM bytes, one streaming read of the
+in-range elements (16 bytes per thread per step), OR-reduced per warp
+into one atomic; census_utf8 is bound by its per-byte checks instead,
+census_utf16 runs near the copy rate (PERF.md). The TPU kernels' bitcast
+word geometry (mod-3 lane masks, unit parity as lane parity) is a TPU
+layout device; the port takes the positional classes from the flat
 position.
 """
 
@@ -17,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ..ops.common import positions, shift_left
+from ..ops.common import bswap16, positions, shift_left, units_i32
 
 # result bits, value-for-value simdutf_tpu/kernels/census.py
 BIT_NONASCII = 1
@@ -69,4 +72,46 @@ def census_bits(b: torch.Tensor, length: int) -> torch.Tensor:
     _build.call("census_utf8", b.data_ptr(), b.shape[0], length,
                 out.data_ptr())
     _build.count_launch("census_utf8")
+    return out[0]
+
+
+# UTF-16 census bits, value-for-value simdutf_tpu/kernels/census.py
+BIT16_NONASCII = 1
+BIT16_V2 = 2
+BIT16_V3 = 4
+BIT16_VASTRAL = 8
+
+
+def census16_bits_ref(w: torch.Tensor, length: int, be: bool = False) -> torch.Tensor:
+    """Plain torch UTF-16 census (simdutf_tpu/ops/utf16.census's jnp
+    form). A bit is set iff some in-range unit (byte-swapped when ``be``)
+    breaks the ASCII / uniform 0x80..0x7FF / uniform 0x800..0xFFFF
+    non-surrogate / high-low pair pattern. Returns a 0-d int32 tensor."""
+    x = units_i32(w)
+    if be:
+        x = bswap16(x)
+    idx = positions(x.shape[0], x.device)
+    in_r = idx < length
+    sur = (x & 0xF800) == 0xD800
+    pair_ok = torch.where((idx & 1) == 0, (x & 0xFC00) == 0xD800,
+                          (x & 0xFC00) == 0xDC00)
+    bits = torch.zeros((), dtype=torch.int32, device=x.device)
+    for bit, viol in ((BIT16_NONASCII, x >= 0x80),
+                      (BIT16_V2, (x < 0x80) | (x > 0x7FF)),
+                      (BIT16_V3, (x < 0x800) | sur),
+                      (BIT16_VASTRAL, ~pair_ok)):
+        bits = bits | torch.where((viol & in_r).any(), bit, 0).to(torch.int32)
+    return bits
+
+
+def census16_bits(w: torch.Tensor, length: int, be: bool = False) -> torch.Tensor:
+    """OR-reduced violation bits of the in-range units of a uint16 buffer
+    (``length`` in units), as a 0-d int32 tensor on ``w``'s device (see
+    :func:`census16_bits_ref`). ``be`` byte-swaps the units in registers."""
+    length = int(length)
+    if _build.check_units(w, length) == "cpu":
+        return census16_bits_ref(w, length, be)
+    out = torch.zeros(1, dtype=torch.int32, device=w.device)
+    _build.call("census_utf16", w.data_ptr(), length, int(be), out.data_ptr())
+    _build.count_launch("census_utf16")
     return out[0]

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ..ops.common import BIG, to_u16
+from ..ops.common import BIG, tile_glue, to_u16
 
 TILE = 4096  # bytes per block; = TILE in csrc/compose16.cu
 
@@ -64,19 +64,8 @@ def to_utf16_compose(b: torch.Tensor, length: int, big_endian: bool):
     _build.call("compose16_count", b.data_ptr(), n, length, nt,
                 counts.data_ptr(), keys.data_ptr(), prefix.data_ptr())
 
-    # glue on the nt-vectors (butterfly.to_utf16_compose's, as torch ops):
-    # tile events are disjoint and increasing, so the least key is the
-    # first error, and the reporting tile's offset + prefix the units
-    # before it
-    inc = torch.cumsum(counts, 0, dtype=torch.int64)
-    off = inc - counts
-    total = inc[-1]
-    first = torch.argmin(keys)
-    key = keys[first]
-    err_pos, err_code = key >> 8, key & 0xFF
-    err_any = err_pos != BIG
-    err_len = torch.where(err_any, off[first] + prefix[first], 0)
-    out_len = torch.where(err_any, err_len, total)
+    off, total, err_any, err_pos, err_code, err_len, out_len = tile_glue(
+        counts, keys, prefix)
 
     _build.call("compose16_emit", b.data_ptr(), n, length, nt,
                 int(big_endian), off.data_ptr(), out_len.data_ptr(),

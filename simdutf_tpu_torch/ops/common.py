@@ -74,6 +74,34 @@ def route(branches, default):
     return default()
 
 
+def tile_glue(counts: torch.Tensor, keys: torch.Tensor, prefix: torch.Tensor):
+    """The glue between a compose kernel's count and emit passes, on the
+    per-tile vectors (the JAX butterflies' own, as torch ops): each
+    tile's output count, least event key ``pos << 8 | code`` (BIG << 8
+    when none) and output before that event. Tile events are disjoint and
+    increasing, so the least key is the first error, and the reporting
+    tile's offset plus its prefix is the output before it. Returns
+    (off, total, err_any, err_pos, err_code, err_len, out_len), ``off``
+    the exclusive per-tile offsets, the rest 0-d int64 tensors (err_any
+    bool); ``out_len`` is err_len on error, else total."""
+    inc = torch.cumsum(counts, 0, dtype=torch.int64)
+    off = inc - counts
+    total = inc[-1]
+    first = torch.argmin(keys)
+    key = keys[first]
+    err_pos, err_code = key >> 8, key & 0xFF
+    err_any = err_pos != BIG
+    err_len = torch.where(err_any, off[first] + prefix[first], 0)
+    out_len = torch.where(err_any, err_len, total)
+    return off, total, err_any, err_pos, err_code, err_len, out_len
+
+
+def units_i32(w: torch.Tensor) -> torch.Tensor:
+    """uint16 tensor -> the same unit values as int32 (widened through
+    int16, which every backend supports)."""
+    return w.view(torch.int16).to(torch.int32) & 0xFFFF
+
+
 def to_u16(units: torch.Tensor) -> torch.Tensor:
     """int32 tensor of 16-bit unit values -> the same values as uint16
     (narrowed through int16, which every backend supports)."""

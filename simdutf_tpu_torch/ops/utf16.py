@@ -1,0 +1,239 @@
+"""UTF-16 ops on torch tensors (port of the validation, count and
+UTF-8 transcode part of simdutf_tpu/ops/utf16.py).
+
+Every function takes a padded 1-D ``torch.uint16`` buffer of units in
+storage order, the logical ``length`` in units (an int), and
+``big_endian``; units at/after ``length`` are ignored. Results stay on the
+buffer's device as 0-d int64 tensors, except where a routing decision
+needs a host value. On a CUDA tensor the kernel wrappers in
+``simdutf_tpu_torch.kernels`` launch their Hopper kernels; on a CPU tensor
+they run their plain versions, which are written from the functions here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from simdutf_tpu.errors import error_code as ec
+
+from ..kernels import census as kcen
+from ..kernels import compose8 as kc8
+from ..kernels import utf16_kernels as k16
+from .common import (
+    BIG,
+    bswap16,
+    excl_scan,
+    positions,
+    route,
+    scatter_writes,
+    shift_left,
+    shift_right,
+    units_i32,
+    zero_tail,
+)
+
+_SURROGATE = int(ec.SURROGATE)
+
+
+def _scalar(x: int, device) -> torch.Tensor:
+    return torch.full((), x, dtype=torch.int64, device=device)
+
+
+def _native16(w: torch.Tensor, big_endian: bool) -> torch.Tensor:
+    """Unit values as int32 in native order, the tail NOT zeroed (the
+    census and fast-branch form)."""
+    x = units_i32(w)
+    return bswap16(x) if big_endian else x
+
+
+def native(w: torch.Tensor, length: int, big_endian: bool) -> torch.Tensor:
+    """Native-order int32 unit values, zero at/after ``length``."""
+    return zero_tail(_native16(w, big_endian), length)
+
+
+def first_error(wn: torch.Tensor, length: int) -> torch.Tensor:
+    """Position of the first lone surrogate of native units ``wn`` (tail
+    zeroed) as a 0-d int64 tensor; BIG when valid."""
+    n = wn.shape[0]
+    if n == 0:
+        return _scalar(BIG, wn.device)
+    idx = positions(n, wn.device)
+    in_r = idx < length
+    is_high = ((wn & 0xFC00) == 0xD800) & in_r
+    is_low = ((wn & 0xFC00) == 0xDC00) & in_r
+    bad = (is_high & ~shift_left(is_low, 1)) | (is_low & ~shift_right(is_high, 1))
+    return torch.where(bad, idx, torch.full_like(idx, BIG)).min()
+
+
+def validate_with_errors(w: torch.Tensor, length: int, big_endian: bool):
+    """-> (err_code, err_pos); (0, length) on success. One pass of the
+    first-bad kernel (kernels/utf16_kernels.utf16_first_bad)."""
+    pos = k16.utf16_first_bad(w, length, big_endian)
+    ok = pos == BIG
+    return (torch.where(ok, 0, _SURROGATE).to(torch.int64),
+            torch.where(ok, torch.full_like(pos, length), pos))
+
+
+def count_code_points(w: torch.Tensor, length: int, big_endian: bool) -> torch.Tensor:
+    return k16.utf16_reduce(w, length, big_endian, "count")
+
+
+def utf8_length(w: torch.Tensor, length: int, big_endian: bool) -> torch.Tensor:
+    return k16.utf16_reduce(w, length, big_endian, "utf8len")
+
+
+def census(w: torch.Tensor, length: int, big_endian: bool):
+    """(ascii, u2r, u3r, astral) as Python bools from ONE census pass plus
+    one device sync; each is an exact validity proof for its class (see
+    simdutf_tpu/ops/utf16.census)."""
+    bits = int(kcen.census16_bits(w, length, big_endian))
+    pos = length > 0
+    return (
+        (bits & kcen.BIT16_NONASCII) == 0,
+        (bits & kcen.BIT16_V2) == 0 and pos,
+        (bits & kcen.BIT16_V3) == 0 and pos,
+        (bits & kcen.BIT16_VASTRAL) == 0 and length % 2 == 0 and pos,
+    )
+
+
+def _bytes_out(by: torch.Tensor, count: int, n: int) -> torch.Tensor:
+    """int32 byte values -> uint8[3n]: zero at/after ``count``."""
+    idx = positions(by.shape[0], by.device)
+    by = torch.where(idx < count, by & 0xFF, torch.zeros_like(by))
+    out = torch.zeros(3 * n, dtype=torch.uint8, device=by.device)
+    out[: by.shape[0]] = by.to(torch.uint8)
+    return out
+
+
+def _u8_fast_branches(w: torch.Tensor, length: int, n: int, big_endian: bool):
+    """The fixed-rate utf16->utf8 branches (ascii, u2r, astral; the
+    uniform-3 class takes the general engine, as in the JAX package); each
+    returns (out uint8[3n], out_len) bit-identical to the general engine
+    on its class. Plain torch on every device: the JAX package has no
+    Pallas kernel here either."""
+
+    def br_ascii():
+        return _bytes_out(_native16(w, big_endian), length, n), length
+
+    def br_u2r():
+        x = _native16(w, big_endian)
+        by = torch.stack([(x >> 6) | 0xC0, (x & 0x3F) | 0x80], dim=1)
+        return _bytes_out(by.reshape(-1), 2 * length, n), 2 * length
+
+    def br_astral():
+        pr = _native16(w[: n // 2 * 2], big_endian).view(-1, 2)
+        hi, lo = pr[:, 0], pr[:, 1]
+        hb = hi - 0xD7C0  # cp >> 10, 11 bits
+        by = torch.stack([0xF0 | (hb >> 8), 0x80 | ((hb >> 2) & 0x3F),
+                          0x80 | ((hb & 0x03) << 4) | ((lo >> 6) & 0x0F),
+                          0x80 | (lo & 0x3F)], dim=1)
+        return _bytes_out(by.reshape(-1), 2 * length, n), 2 * length
+
+    return br_ascii, br_u2r, br_astral
+
+
+def _utf8_general_parts(w: torch.Tensor, length: int, big_endian: bool):
+    """The plain mixed-width engine, scan -> scatter, in the butterfly's
+    accounting (every in-range unit emits 1-3 bytes, each surrogate 2,
+    paired or not), and the compose kernel's plain version. Returns
+    (err_pos, err_code, out uint8[3n] zeroed at/after out_len, total,
+    err_len): err_pos == BIG when valid, total counts every byte, err_len
+    the bytes before err_pos."""
+    n = w.shape[0]
+    dev = w.device
+    x = native(w, length, big_endian)
+    err_pos = first_error(x, length)
+    ok = err_pos == BIG
+    err_code = torch.where(ok, 0, _SURROGATE).to(torch.int64)
+    idx = positions(n, dev)
+    in_r = idx < length
+    hi = (x & 0xFC00) == 0xD800
+    lo = (x & 0xFC00) == 0xDC00
+    e1 = in_r & (x < 0x80)
+    e2 = in_r & (x >= 0x80) & (x < 0x800)
+    e3 = in_r & (x >= 0x800) & ~hi & ~lo
+    width = in_r.to(torch.int64) + (in_r & ~e1).to(torch.int64) + e3.to(torch.int64)
+    off, inc = excl_scan(width)
+    total = inc[n - 1] if n else _scalar(0, dev)
+
+    hb = x - 0xD7C0  # cp >> 10 at a high surrogate
+    hb_prev = shift_right(x, 1) - 0xD7C0
+    z = torch.zeros_like(x)
+    b0 = torch.where(e1, x, z)
+    b0 = torch.where(e2, 0xC0 | (x >> 6), b0)
+    b0 = torch.where(e3, 0xE0 | (x >> 12), b0)
+    b0 = torch.where(hi, 0xF0 | (hb >> 8), b0)
+    b0 = torch.where(lo, 0x80 | ((hb_prev & 0x3) << 4) | ((x >> 6) & 0xF), b0)
+    b1 = torch.where(e2, 0x80 | (x & 0x3F), z)
+    b1 = torch.where(e3, 0x80 | ((x >> 6) & 0x3F), b1)
+    b1 = torch.where(hi, 0x80 | ((hb >> 2) & 0x3F), b1)
+    b1 = torch.where(lo, 0x80 | (x & 0x3F), b1)
+    b2 = 0x80 | (x & 0x3F)
+    out = scatter_writes(3 * n, [(in_r, off, b0), (in_r & ~e1, off + 1, b1),
+                                 (e3, off + 2, b2)], dev)
+    # off[0] == 0 for an exclusive scan, so err_pos == 0 needs no case
+    err_len = torch.where(ok, _scalar(0, dev),
+                          off[torch.clamp(err_pos, max=max(n - 1, 0))]
+                          if n else _scalar(0, dev))
+    out_len = torch.where(ok, total, err_len)
+    out = torch.where(positions(3 * n, dev) < out_len, out & 0xFF,
+                      torch.zeros_like(out))
+    return err_pos, err_code, out.to(torch.uint8), total, err_len
+
+
+def _general_utf8(w: torch.Tensor, length: int, big_endian: bool):
+    """Mixed input: the compose kernel (kernels/compose8) at every buffer
+    size. Its output is already zero at/after the valid-prefix end.
+    Returns (err_code, err_pos, out uint8[3n], out_len)."""
+    out, total, err_any, err_pos, err_code, err_len = kc8.to_utf8_compose(
+        w, length, big_endian)
+    return (torch.where(err_any, err_code, torch.zeros_like(err_code)),
+            torch.where(err_any, err_pos, _scalar(length, w.device)),
+            out,
+            torch.where(err_any, err_len, total))
+
+
+def to_utf8(w: torch.Tensor, length: int, big_endian: bool):
+    """Validating transcode, routed on a one-pass census: whole-buffer
+    ASCII, uniform 0x80..0x7FF or astral-pair input takes a fixed-rate
+    branch (the census predicate is its validity proof); all other input,
+    the uniform-3 class included, takes the compose kernel.
+
+    Returns (err_code, err_pos, out uint8[3N], out_len); on error out_len
+    counts the bytes of the valid prefix, and bytes at/after out_len are
+    zero."""
+    n = w.shape[0]
+    dev = w.device
+    ascii_, u2r, _, astral = census(w, length, big_endian)
+    fast = _u8_fast_branches(w, length, n, big_endian)
+
+    def wrap(br):
+        def f():
+            out, cnt = br()
+            return _scalar(0, dev), _scalar(length, dev), out, _scalar(cnt, dev)
+        return f
+
+    return route(
+        [(p, wrap(br)) for p, br in zip((ascii_, u2r, astral), fast)],
+        lambda: _general_utf8(w, length, big_endian),
+    )
+
+
+def to_utf8_valid(w: torch.Tensor, length: int, big_endian: bool):
+    """convert_valid_utf16*_to_utf8: assumes valid input. Returns
+    (out uint8[3N], out_len), census-routed like :func:`to_utf8`."""
+    n = w.shape[0]
+    dev = w.device
+    ascii_, u2r, _, astral = census(w, length, big_endian)
+    fast = _u8_fast_branches(w, length, n, big_endian)
+
+    def wrap(br):
+        def f():
+            out, cnt = br()
+            return out, _scalar(cnt, dev)
+        return f
+
+    return route(
+        [(p, wrap(br)) for p, br in zip((ascii_, u2r, astral), fast)],
+        lambda: kc8.to_utf8_compose(w, length, big_endian)[:2],
+    )

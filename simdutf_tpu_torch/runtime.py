@@ -28,18 +28,24 @@ def _pinned(nbytes: int) -> tuple[torch.Tensor, torch.cuda.Event]:
     return entry
 
 
+_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.uint16): torch.uint16}
+
+
 def to_device(host: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A 1-D uint8 tensor on ``device`` holding a copy of the 1-D uint8
-    array ``host``."""
-    if host.dtype != np.uint8 or host.ndim != 1:
-        raise TypeError(f"expected a 1-D uint8 array, got {host.dtype}{host.shape}")
-    src = torch.from_numpy(np.ascontiguousarray(host))
+    """A 1-D tensor on ``device`` holding a copy of the 1-D uint8 or uint16
+    array ``host``, of the same dtype. The bytes travel as uint8 and are
+    viewed as uint16 on arrival."""
+    if host.dtype not in _DTYPES or host.ndim != 1:
+        raise TypeError(
+            f"expected a 1-D uint8 or uint16 array, got {host.dtype}{host.shape}")
+    dtype = _DTYPES[host.dtype]
+    src = torch.from_numpy(np.ascontiguousarray(host).view(np.uint8))
     if device.type != "cuda":
-        return src.clone()
+        return src.clone().view(dtype)
     n = src.shape[0]
     buf, done = _pinned(n)
     buf[:n].copy_(src)
     dev = torch.empty(n, dtype=torch.uint8, device=device)
     dev.copy_(buf[:n], non_blocking=True)
     done.record()
-    return dev
+    return dev.view(dtype)

@@ -1,0 +1,151 @@
+"""simdutf_tpu_torch.kernels.compose8 against the Pallas butterfly16
+(simdutf_tpu.kernels.butterfly16.to_utf8_compose, interpret mode on CPU,
+called directly as tests/test_butterfly16.py does: off the TPU the general
+engine routes to the scatter form instead).
+
+The butterfly takes native-order units; the port takes the same units in
+storage order with the byte order beside them. Both get one or two
+8192-unit tiles and the same length; every element of the contract must be
+equal: the full 3N-byte output (zeros past out_len included), total,
+err_any, err_pos, err_code and err_len. ``total`` counts 2 bytes for
+every surrogate, paired or not, so it equals the "utf8len" count on every
+input. Integer results: exact.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from simdutf_tpu.kernels import butterfly16 as jb16
+from simdutf_tpu.ops import utf16 as jo16
+from simdutf_tpu_torch.kernels import compose8 as tc8
+from simdutf_tpu_torch.kernels import utf16_kernels as tk16
+
+T = jb16.TILE_U  # 8192-unit butterfly tiles (the port's own are 2048)
+_jcompose = jax.jit(jb16.to_utf8_compose)
+_jutf8len = jax.jit(jo16.utf8_length, static_argnums=2)
+
+
+def _units(text: str) -> np.ndarray:
+    return np.frombuffer(text.encode("utf-16-le"), np.uint16)
+
+
+def _compare(units: np.ndarray, be: bool, length: int | None = None,
+             garbage: bool = False):
+    """Run both on ``units`` padded to whole butterfly tiles; the length
+    defaults to all of ``units``. Returns the port's scalars as ints."""
+    length = len(units) if length is None else length
+    n = max(T, -(-len(units) // T) * T)
+    buf = np.zeros(n, np.uint16)
+    if garbage:  # units past the length are ignored by both
+        buf[:] = np.random.default_rng(len(units)).integers(0, 1 << 16, n)
+    buf[: len(units)] = units
+    want = _jcompose(jnp.asarray(buf), jnp.int32(length))
+    stored = buf.byteswap() if be else buf
+    w = torch.from_numpy(stored.view(np.int16)).view(torch.uint16)
+    got = tc8.to_utf8_compose(w, length, be)
+    assert got[0].dtype == torch.uint8 and got[0].shape == (3 * n,)
+    assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+    rest = [int(v) for v in got[1:]]
+    assert rest == [int(v) for v in want[1:]]
+    # the invariant: total == utf8_length, valid or not
+    assert rest[0] == int(tk16.utf16_reduce(w, length, be, "utf8len"))
+    assert rest[0] == int(_jutf8len(jnp.asarray(stored), length, be))
+    return rest
+
+
+def _with(units, pos, value) -> np.ndarray:
+    out = np.array(units, np.uint16)
+    out[pos] = value
+    return out
+
+
+_ALPHABET = ["a", " ", "é", "Ж", "東", "\U0001f642", "\U0010ffff", "\x00"]
+
+
+def _mixed(n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    text = "".join(_ALPHABET[i] for i in rng.integers(0, len(_ALPHABET), n))
+    return _units(text)[:n].copy()
+
+
+_X = _units("x" * (T + 100))
+CASES = {
+    # every width interleaved across the 8192-unit tile edge
+    "mixed_2tiles": _mixed(2 * T - 77, 1),
+    "zh_spaces": _units("東京は日本 " * 1500)[: T - 5],
+    "emoji": _units("\U0001f642\U0001f680" * 1000),
+    "width_edges": np.array([0x7F, 0x80, 0x7FF, 0x800, 0xD7FF, 0xE000, 0xFFFF] * 300, np.uint16),
+    # pairs straddling the butterfly's and the port's tile edges
+    "straddle_8192": _units("x" * (T - 1) + "\U0001f642" + "tail é 東"),
+    "straddle_2048": _units("x" * 2047 + "\U0001f642" + "é" * 3000),
+    # lone surrogates at 0, at tile edges, at length-1
+    "lone_high_at_0": _with(_X, 0, 0xD800),
+    "lone_low_at_0": _with(_X, 0, 0xDC00),
+    "lone_low_at_2048": _with(_X, 2048, 0xDC00),
+    "lone_high_at_2047": _with(_X, 2047, 0xD800),
+    "lone_high_at_8191": _with(_X, T - 1, 0xDBFF),
+    "lone_low_at_8192": _with(_X, T, 0xDFFF),
+    "lone_high_at_end": np.concatenate([_mixed(3000, 2)[:2999], [0xD83D]]).astype(np.uint16),
+    "lone_high_then_ascii": np.array([0x61, 0xD83D, 0x61, 0x62], np.uint16),
+    "lone_low_then_cjk": np.array([0x61, 0xDC00, 0x4E00], np.uint16),
+    "two_errors": _with(_with(_mixed(6000, 3), 5000, 0xDC00), 4000, 0xD800),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("be", [False, True])
+def test_compose_matches_butterfly16(name, be):
+    total, err_any, err_pos, err_code, err_len = _compare(CASES[name], be)
+    assert bool(err_any) == ("lone" in name or name.startswith("two"))
+
+
+def test_compose_total_on_invalid_input():
+    """Butterfly accounting on invalid input: 5 and 6 bytes, where the
+    scatter engine's widths would sum to 7 and 4."""
+    assert _compare(CASES["lone_high_then_ascii"], False)[:4] == [5, 1, 1, 6]
+    assert _compare(CASES["lone_low_then_cjk"], False)[:4] == [6, 1, 1, 6]
+
+
+@pytest.mark.parametrize("be", [False, True])
+def test_compose_high_at_length_minus_one(be):
+    """A high surrogate at length-1 whose low is stored at length is
+    lone; garbage past the length is ignored."""
+    units = _units("ab é \U0001f642" * 500)
+    L = len(units) - 1
+    assert units[L - 1] >> 10 == 0xD800 >> 10
+    total, err_any, err_pos, err_code, err_len = _compare(units, be, L, garbage=True)
+    assert err_any and err_pos == L - 1 and err_len == total - 2
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_compose_random_lone_surrogates_and_garbage(seed):
+    rng = np.random.default_rng(seed)
+    units = _mixed(int(rng.integers(1, T)), 10 + seed)
+    for _ in range(seed % 3):
+        units[int(rng.integers(0, len(units)))] = int(rng.integers(0xD800, 0xE000))
+    _compare(units, bool(seed & 1), garbage=True)
+
+
+def test_compose_empty_length():
+    assert _compare(np.zeros(0, np.uint16), False) == [0, 0, 2**31 - 1, 0, 0]
+
+
+@pytest.mark.parametrize("err", [False, True])
+def test_tile_glue(err):
+    """The torch glue that both compose kernels run between their passes
+    (on the card only), on hand-made per-tile vectors: offsets, total,
+    and the first error from the least event key."""
+    from simdutf_tpu_torch.ops.common import BIG, tile_glue
+
+    none = BIG << 8
+    counts = torch.tensor([3, 5, 2], dtype=torch.int32)
+    keys = torch.tensor([none, (7 << 8) | 6 if err else none,
+                         (9 << 8) | 3 if err else none], dtype=torch.int64)
+    prefix = torch.tensor([3, 4, 1], dtype=torch.int32)
+    off, *rest = tile_glue(counts, keys, prefix)
+    assert off.tolist() == [0, 3, 8]
+    want = [10, True, 7, 6, 7, 7] if err else [10, False, BIG, 0, 0, 10]
+    assert [int(v) for v in rest] == want

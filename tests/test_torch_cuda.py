@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from simdutf_tpu_torch.kernels import census as kcen
+from simdutf_tpu_torch.kernels import compose8 as kc8
 from simdutf_tpu_torch.kernels import compose16 as kc
+from simdutf_tpu_torch.kernels import utf16_kernels as k16
 from simdutf_tpu_torch.kernels import validate as kv
 
 pytestmark = pytest.mark.cuda
@@ -66,4 +68,66 @@ def test_kernels_match_plain_versions(cuda, name, data):
         assert _same(kv._count_call(x, L, what), kv.count_ref(x, L, what))
     for be in (False, True):
         assert _same(kc.to_utf16_compose(x, L, be), kc.to_utf16_compose_ref(x, L, be))
+    torch.cuda.synchronize()
+
+
+def _inputs16():
+    """(name, units in storage order for LE) for the UTF-16 kernels."""
+    rng = np.random.default_rng(1)
+    alphabet = ["a", "é", "東", "\U0001f642", " "]
+    out = [("astral", "\U0001f642".encode("utf-16-le") * 3000),
+           ("u2", "é".encode("utf-16-le") * 3000), ("empty", b"")]
+    for t in range(12):
+        size = int(rng.integers(1, 30_000))
+        d = np.frombuffer("".join(alphabet[i] for i in rng.integers(0, 5, size))
+                          .encode("utf-16-le"), np.uint16)[:size].copy()
+        for _ in range(t % 3):  # lone surrogates
+            d[int(rng.integers(0, len(d)))] = (0xD800, 0xDC00)[t % 2] + t
+        out.append((f"fuzz{t}", d.tobytes()))
+    # a high surrogate at length-1 whose low is stored at length
+    pair = np.frombuffer("ab\U0001f642".encode("utf-16-le"), np.uint16)
+    out.append(("hi@len-1", pair[:3].tobytes()))
+    return out
+
+
+@pytest.mark.parametrize("name,data", _inputs16())
+@pytest.mark.parametrize("be", [False, True])
+def test_utf16_kernels_match_plain_versions(cuda, name, data, be):
+    units = np.frombuffer(data, np.uint16)
+    L = len(units)
+    n = L + 13  # units past the length are garbage
+    buf = np.random.default_rng(n).integers(0, 1 << 16, n).astype(np.uint16)
+    buf[:L] = units.byteswap() if be else units
+    if name == "hi@len-1":
+        buf[L] = 0xDE42 if not be else 0x42DE
+    w = torch.from_numpy(buf.view(np.int16)).to(cuda).view(torch.uint16)
+    assert _same(kcen.census16_bits(w, L, be), kcen.census16_bits_ref(w, L, be))
+    assert _same(k16.utf16_first_bad(w, L, be), k16.utf16_first_bad_ref(w, L, be))
+    for what in ("count", "utf8len"):
+        assert _same(k16.utf16_reduce(w, L, be, what),
+                     k16.utf16_reduce_ref(w, L, be, what))
+    got = kc8.to_utf8_compose(w, L, be)
+    assert _same(got, kc8.to_utf8_compose_ref(w, L, be))
+    assert _same(got[1], k16.utf16_reduce(w, L, be, "utf8len"))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("be", [False, True])
+def test_utf16_kernels_on_unaligned_views(cuda, be):
+    """A view one unit into its storage: the 16-byte loads give way to
+    unit loads, with the same results."""
+    text = "ab é 東 \U0001f642 " * 3000
+    units = np.frombuffer(text.encode("utf-16-be" if be else "utf-16-le"), np.uint16)
+    buf = np.zeros(len(units) + 17, np.uint16)
+    buf[1: len(units) + 1] = units
+    buf[5000] = 0xDC if be else 0xDC00  # a lone low surrogate at unit 4999
+    w = torch.from_numpy(buf.view(np.int16)).to(cuda).view(torch.uint16)[1:]
+    assert w.data_ptr() % 16 != 0
+    L = len(units)
+    assert _same(kcen.census16_bits(w, L, be), kcen.census16_bits_ref(w, L, be))
+    assert int(k16.utf16_first_bad(w, L, be)) == 4999
+    for what in ("count", "utf8len"):
+        assert _same(k16.utf16_reduce(w, L, be, what),
+                     k16.utf16_reduce_ref(w, L, be, what))
+    assert _same(kc8.to_utf8_compose(w, L, be), kc8.to_utf8_compose_ref(w, L, be))
     torch.cuda.synchronize()

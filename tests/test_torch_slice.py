@@ -118,6 +118,16 @@ def test_port_runs_without_jax():
         "assert su.validate_utf8_with_errors(d + b'\\xff').count == len(d)\n"
         "assert su.count_utf8(d) == len(d.decode())\n"
         "assert su.utf16_length_from_utf8(d) == len(out) // 2\n"
+        "for cs, end in (('utf-16-le', 'le'), ('utf-16-be', 'be')):\n"
+        "    w = d.decode().encode(cs)\n"
+        "    conv = getattr(su, f'convert_utf16{end}_to_utf8_with_errors')\n"
+        "    res, out8 = conv(w)\n"
+        "    assert res.is_ok and out8 == d\n"
+        "    assert getattr(su, f'convert_valid_utf16{end}_to_utf8')(w) == d\n"
+        "    bad = w[:20] + '\\udc00'.encode(cs, 'surrogatepass') + w[20:]\n"
+        "    assert getattr(su, f'validate_utf16{end}_with_errors')(bad).count == 10\n"
+        "    assert getattr(su, f'count_utf16{end}')(w) == len(d.decode())\n"
+        "    assert getattr(su, f'utf8_length_from_utf16{end}')(w) == len(d)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
