@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
-Two paths, each driven through the public api: UTF-8 -> UTF-16LE/BE with
-UTF-8 validation and counts, and UTF-16LE/BE -> UTF-8 with UTF-16
-validation and counts. Phases, each fatal on failure:
+Three paths, each driven through the public api: UTF-8 -> UTF-16LE/BE with
+UTF-8 validation and counts, UTF-16LE/BE -> UTF-8 with UTF-16 validation
+and counts, and forgiving base64 decode and encode. Phases, each fatal on
+failure:
   1. device  - name, compute capability (must be 9.0), nvidia-smi power limit;
   2. build   - nvcc builds csrc/*.cu (one process per source) into one library;
   3. parity  - every Hopper kernel against its plain torch version on the
@@ -23,9 +24,19 @@ validation and counts. Phases, each fatal on failure:
                profile; every kernel of a path must have launched during
                that path's calls (counts reset just before, read just
                after);
-  5. times   - device-resident kernels and both transcodes against their
-               plain versions, with CUDA events, and a torch.profiler
-               breakdown of each transcode.
+     parity64 and slice64 do the same for base64: each base64 kernel
+               against its plain version (uint8 and char16 chars, the three
+               alphabet modes, invalid chars at 0, at tile edges, at
+               length-1 and at length, all-whitespace tiles, garbage past
+               the length, length == N, the MIME corpus with and without an
+               invalid char), then the public base64 api on the MIME corpus
+               (bench.py's: the base64 of 48 MiB of the mixed corpus,
+               CRLF every 76 chars) and its char16 form, against the raw
+               bytes, CPython's base64 and the golden tier;
+  5. times   - device-resident kernels, both transcodes and the routed
+               base64 decode and encode against their plain versions, with
+               CUDA events, and a torch.profiler breakdown of each
+               transcode and of the routed decode.
 
 The last line of stdout is {"ok": true, "device": {...}}; it is printed
 only when every phase passed. Without CUDA the script exits with code 2.
@@ -47,6 +58,7 @@ PASSES = ("census_utf8", "utf8_first_event", "utf8_count",
           "utf8_to_utf16_compose")
 PASSES16 = ("census_utf16", "utf16_first_bad", "utf16_count",
             "utf16_to_utf8_compose")
+PASSES64 = ("b64_compact", "b64_pack", "b64_encode")
 KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
     "census_utf8": ("simdutf_tpu_torch/csrc/census.cu",
                     "simdutf_tpu/kernels/census.py:204", []),
@@ -67,7 +79,17 @@ KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
     "utf16_to_utf8_compose": ("simdutf_tpu_torch/csrc/compose8.cu",
                               "simdutf_tpu/kernels/butterfly16.py:221",
                               ["simdutf_tpu/kernels/butterfly16.py:335"]),
+    "b64_compact": ("simdutf_tpu_torch/csrc/base64.cu",
+                    "simdutf_tpu/kernels/butterfly64.py:160",
+                    ["simdutf_tpu/kernels/butterfly64.py:222",
+                     "simdutf_tpu/kernels/butterfly16.py:335"]),
+    "b64_pack": ("simdutf_tpu_torch/csrc/base64.cu",
+                 "simdutf_tpu/kernels/base64_kernel.py:189",
+                 ["simdutf_tpu/kernels/base64_kernel.py:308"]),
+    "b64_encode": ("simdutf_tpu_torch/csrc/base64.cu",
+                   "simdutf_tpu/kernels/base64_kernel.py:414", []),
 }
+MODES64 = ((False, False), (True, False), (False, True))  # (url, both)
 
 
 class SmokeFailure(Exception):
@@ -250,6 +272,43 @@ def parity16_cases(big: int):
             continue
         out.append((name, units, n + pad, i % 3 == 2))
     return out
+
+
+def mime_corpus(big: int) -> tuple[bytes, bytes]:
+    """(raw bytes, their base64 with CRLF every 76 chars): bench.py's base64
+    decode input, from the first 3/4 of the mixed corpus."""
+    import base64
+
+    import bench
+
+    raw = bench.mixed_corpus(big)[: big * 3 // 4]
+    enc = base64.b64encode(raw)
+    return raw, b"\r\n".join(enc[i:i + 76] for i in range(0, len(enc), 76))
+
+
+def parity64_cases(mime: bytes):
+    """(name, stored chars, length, buffer size, garbage past the stored
+    chars) for the base64 kernel parity phase."""
+    small = mime[:60_000]
+    cases = [("mime-60k", small, 60_000, 60_008, False),
+             ("mime-60k-garbage", small, 60_000, 61_000, True),
+             ("len==N", small[:40_000], 40_000, 40_000, False),
+             ("len==N-ws-last", small[:39_998] + b" Q", 40_000, 40_000, False),
+             ("ws-tiles", b" " * 3 * 4096 + b"TWFu" + b"\n" * 9000 + b"QUI",
+              21_295, 24_000, True),
+             ("one", b"Q", 1, 4, False),
+             ("bad@len", small[:30_000] + b"*", 30_000, 30_004, False)]
+    for pos in (0, 1, 4095, 4096, 4097, 8191, 8192, 29_999):
+        d = bytearray(small[:30_000])
+        d[pos] = ord("*")
+        cases.append((f"bad@{pos}", bytes(d), 30_000, 30_000 + 4 * (pos % 3),
+                      pos % 2 == 1))
+    n = -(-(len(mime) + 8) // 4) * 4
+    cases.append(("mime-full", mime, len(mime), n, False))
+    bad = bytearray(mime)
+    bad[len(bad) // 2 + 1] = ord("*")
+    cases.append(("mime-full-bad", bytes(bad), len(mime), n, False))
+    return cases
 
 
 # --- phases ------------------------------------------------------------------
@@ -549,6 +608,125 @@ def slice16_phase(device, big: int = CORPUS_BYTES) -> dict:
     return launches
 
 
+def parity64_phase(device, big: int = CORPUS_BYTES) -> dict:
+    """Each base64 kernel against its plain version on ``device``, uint8
+    and char16 chars, the three alphabet modes; returns the largest error
+    seen per kernel (all must be 0)."""
+    import numpy as np
+    import torch
+
+    from simdutf_tpu_torch.kernels import base64_kernel as kb
+    from simdutf_tpu_torch.kernels import compact64 as kc64
+    from simdutf_tpu_torch.ops import base64_ops as ob
+
+    def record(k, name, kern, plain):
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        e = _max_err(kern, plain)
+        errs[k] = max(errs[k], e)
+        check(e == 0, f"parity {k} on {name}: max abs err {e}")
+
+    errs = dict.fromkeys(PASSES64, 0)
+    raw, mime = mime_corpus(big)
+    cases = parity64_cases(mime)
+    for name, data, L, n, garbage in cases:
+        buf = np.zeros(n, np.uint8)
+        if garbage:
+            buf[:] = np.random.default_rng(L).integers(0, 256, n)
+        buf[:len(data)] = np.frombuffer(data, np.uint8)
+        for wide in (False, True):
+            if wide:  # a unit above 0xFF whose low byte is 'A'
+                b16 = buf.astype(np.uint16)
+                if name.startswith("mime"):
+                    b16[L // 3] = 0x141
+                x = torch.from_numpy(b16.view(np.int16)).to(device).view(torch.uint16)
+            else:
+                x = torch.from_numpy(buf).to(device)
+            for url, both in MODES64:
+                what = f"{name} (n={n}, length={L}, wide={wide}, url={url}, both={both})"
+                got = kc64.compact_codes(x, L, url, both)
+                record("b64_compact", what, got, kc64.compact_codes_ref(x, L, url, both))
+                record("b64_pack", what, kb.pack(got[0]), kb.pack_ref(got[0]))
+                record("b64_compact", what, ob.decode_bulk_routed(x, L, url, both),
+                       ob.decode_bulk(x, L, url, both))
+    # pack on arbitrary bytes, encode on the raw corpus and on ragged sizes
+    rng = np.random.default_rng(SEED + 64)
+    for n in (4, 16, 20, 1028, 3 * 1536 * 5 + 12):
+        b = torch.from_numpy(rng.integers(0, 256, n).astype(np.uint8)).to(device)
+        record("b64_pack", f"random {n}", kb.pack(b), kb.pack_ref(b))
+        m = n // 3 * 3
+        for url in (False, True):
+            record("b64_encode", f"random {m}", kb.encode(b[:m], url),
+                   kb.encode_ref(b[:m], url))
+    r = torch.from_numpy(np.frombuffer(raw, np.uint8)[: len(raw) // 3 * 3].copy()).to(device)
+    for url in (False, True):
+        record("b64_encode", f"raw corpus, url={url}", kb.encode(r, url),
+               kb.encode_ref(r, url))
+    log(f"parity64: {len(cases)} char buffers, uint8 and char16, three alphabet "
+        f"modes, every base64 kernel bit-identical to its plain version")
+    return errs
+
+
+def slice64_phase(device, big: int = CORPUS_BYTES) -> dict:
+    """The public base64 api with the port installed, on the MIME corpus
+    and its char16 form; returns the launch count of each base64 kernel
+    during the main-path calls."""
+    import base64
+
+    import numpy as np
+
+    import simdutf_tpu as su
+    from simdutf_tpu.errors import error_code as ec
+    from simdutf_tpu.golden import base64_impl as gb
+
+    import simdutf_tpu_torch
+    from simdutf_tpu_torch.kernels import _build
+
+    su.set_active_implementation(simdutf_tpu_torch.TorchImplementation(device))
+    raw, mime = mime_corpus(big)
+    mime16 = np.frombuffer(mime, np.uint8).astype(np.uint16)
+
+    _build.reset_launches()
+    res, out = su.base64_to_binary(mime)
+    res16, out16 = su.base64_to_binary(mime16)
+    enc = su.binary_to_base64(raw)
+    enc_url = su.binary_to_base64(raw, su.base64_url)
+    launches = dict(_build.LAUNCHES)
+
+    check(res.error == ec.SUCCESS and res.count == len(raw), f"decode result {res}")
+    check(out == raw, "decoded MIME corpus differs from the raw bytes")
+    check(res16.is_ok and out16 == raw, f"char16 decode {res16} differs")
+    check(enc == base64.b64encode(raw), "encode differs from base64.b64encode")
+    check(enc_url == base64.urlsafe_b64encode(raw), "url encode differs")
+    for k in PASSES64:
+        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the main path")
+    log(f"slice64: {len(mime)} chars of MIME base64 -> {len(raw)} B, uint8 and "
+        f"char16, equal to the raw bytes; encode equal to base64.b64encode "
+        f"(default and url); launches {launches}")
+
+    bad = np.frombuffer(mime, np.uint8).copy()
+    k = len(bad) * 3 // 5
+    bad[k] = ord("*")
+    g_full, g_out = gb.decode(bad, 0, gb.LOOSE)
+    full, out = su.base64_to_binary_details(bad)
+    check((full, out) == (g_full, g_out.tobytes()) and full.input_count == k,
+          f"injected invalid char: port {full} golden {g_full}")
+    full16, out16 = su.base64_to_binary_details(bad.astype(np.uint16))
+    check((full16, out16) == (full, out), "char16 injected invalid char differs")
+    log(f"slice64: injected invalid char reported as ({full.error.name}, "
+        f"{full.input_count}), partial output {full.output_count} B as golden")
+
+    # a short capacity takes the golden tier's capacity-limited loop; the
+    # maximal binary length takes the port's decode
+    for cap in (1000, su.maximal_binary_length_from_base64(mime)):
+        got = su.base64_to_binary_safe(mime, cap)
+        res, want = gb.decode_safe(np.frombuffer(mime, np.uint8), cap)
+        check(got == (res, want.tobytes()), f"safe decode at capacity {cap}: {got[0]} vs {res}")
+    log("slice64: base64_to_binary_safe equals golden at capacity 1000 and at "
+        "the maximal binary length")
+    return launches
+
+
 def cuda_ms(fn, iters: int = 10, trials: int = 7) -> float:
     """Median over trials of the mean time of ``iters`` calls, by CUDA
     events, after one warm-up call."""
@@ -652,6 +830,54 @@ def times_phase(card: str, big: int = CORPUS_BYTES) -> dict:
     return ms
 
 
+def times64_phase(card: str, big: int = CORPUS_BYTES) -> dict:
+    """ms of each base64 kernel and of its plain version at the base64
+    path's shapes (the MIME corpus in its bucket, device-resident; its
+    dense codes; the raw bytes), of the routed decode and the encode, and
+    the public api's decode and encode on the host clock."""
+    import numpy as np
+    import torch
+
+    import simdutf_tpu as su
+    from simdutf_tpu_torch import impl
+    from simdutf_tpu_torch.kernels import base64_kernel as kb
+    from simdutf_tpu_torch.kernels import compact64 as kc64
+    from simdutf_tpu_torch.ops import base64_ops as ob
+
+    raw, mime = mime_corpus(big)
+    x, L = impl.to_device(*impl._pad(np.frombuffer(mime, np.uint8)), "cuda")
+    r, R = impl.to_device(*impl._pad(np.frombuffer(raw, np.uint8), 1536), "cuda")
+    codes = kc64.compact_codes(x, L, False, False)[0]
+    torch.cuda.synchronize()
+    ms = _time_pairs({
+        "b64_compact": (lambda: kc64.compact_codes(x, L, False, False),
+                        lambda: kc64.compact_codes_ref(x, L, False, False)),
+        "b64_pack": (lambda: kb.pack(codes), lambda: kb.pack_ref(codes)),
+        "decode (ops.base64_ops, routed)": (
+            lambda: ob.decode_bulk_routed(x, L, False, False),
+            lambda: kb.pack_ref(kc64.compact_codes_ref(x, L, False, False)[0])),
+    }, L, card)
+    ms.update(_time_pairs({
+        "b64_encode": (lambda: kb.encode(r, False), lambda: kb.encode_ref(r, False)),
+        "encode (ops.base64_ops.encode_bulk)": (lambda: ob.encode_bulk(r, False),
+                                                lambda: ob.encode_small(r, False)),
+    }, r.numel(), card))
+    for what, fn, nbytes in (("base64_to_binary", lambda: su.base64_to_binary(mime), L),
+                             ("binary_to_base64", lambda: su.binary_to_base64(raw), R)):
+        fn()
+        host = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+        log(f"time public su.{what} (host clock, bytes in and out of host "
+            f"memory): {statistics.median(host):.2f} ms, "
+            f"{nbytes / statistics.median(host) / 1e6:.2f} GB/s in [{card}]")
+    breakdown(lambda: ob.decode_bulk_routed(x, L, False, False),
+              f"base64 decode (MIME, {L} chars)", card)
+    return ms
+
+
 def breakdown(fn, what: str, card: str, iters: int = 20) -> None:
     """Device time per call of each kernel ``fn`` runs, and the device's
     busy share of the window, from torch.profiler."""
@@ -701,18 +927,24 @@ def main() -> int:
         errs.update(parity16_phase("cuda"))
         launches8 = slice_phase("cuda")
         launches16 = slice16_phase("cuda")
+        errs.update(parity64_phase("cuda"))
+        launches64 = slice64_phase("cuda")
         ms = times_phase(card)
+        ms.update(times64_phase(card))
         check("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    launches = {k: got[k] for got, path in ((launches8, PASSES),
+                                            (launches16, PASSES16),
+                                            (launches64, PASSES64))
+                for k in path}
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "also_replaces": KERNELS[k][2],
-         "launches": (launches8 if k in PASSES else launches16)[k],
-         "max_abs_err": errs[k],
+         "launches": launches[k], "max_abs_err": errs[k],
          "ms": ms[k][0], "plain_ms": ms[k][1]}
-        for k in PASSES + PASSES16
+        for k in PASSES + PASSES16 + PASSES64
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

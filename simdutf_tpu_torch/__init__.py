@@ -1,9 +1,10 @@
 """simdutf_tpu_torch: the PyTorch + CUDA (NVIDIA Hopper) port of simdutf_tpu.
 
-It serves two slices: the validating UTF-8 -> UTF-16LE/BE main path with
-exact first-error validation and the UTF-8 counts, and the validating
+It serves three slices: the validating UTF-8 -> UTF-16LE/BE main path
+with exact first-error validation and the UTF-8 counts, the validating
 UTF-16LE/BE -> UTF-8 path with exact first-error UTF-16 validation and
-the UTF-16 counts. Its kernels are hand-written CUDA C++ for sm_90a
+the UTF-16 counts, and forgiving base64 decode (uint8 and char16 input)
+and encode. Its kernels are hand-written CUDA C++ for sm_90a
 (``csrc/``), built with nvcc at first use; every
 kernel has a plain torch version beside it, which is what runs for a
 tensor on the CPU. The JAX package stays the reference; this package

@@ -46,6 +46,12 @@ SIGNATURES = {
     "utf16_count": (_P, _I64, _I32, _I32, _P, _P),
     "compose8_count": (_P, _I64, _I32, _I32, _P, _P, _P, _P),
     "compose8_emit": (_P, _I64, _I32, _I32, _P, _P, _P, _P),
+    "b64_compact8_count": (_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P),
+    "b64_compact16_count": (_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P),
+    "b64_compact8_emit": (_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P),
+    "b64_compact16_emit": (_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P),
+    "b64_pack": (_P, _I64, _P, _P),
+    "b64_encode": (_P, _I64, _I32, _P, _P),
 }
 
 #: kernel launches per wrapper name since the last :func:`reset_launches`

@@ -8,15 +8,20 @@ machine with the card:
 (``chip_smoke.py`` runs the same comparisons at the full 64 MiB size.)
 """
 
+import base64 as pyb64
+
 import numpy as np
 import pytest
 import torch
 
+from simdutf_tpu_torch.kernels import base64_kernel as kb
 from simdutf_tpu_torch.kernels import census as kcen
+from simdutf_tpu_torch.kernels import compact64 as kc64
 from simdutf_tpu_torch.kernels import compose8 as kc8
 from simdutf_tpu_torch.kernels import compose16 as kc
 from simdutf_tpu_torch.kernels import utf16_kernels as k16
 from simdutf_tpu_torch.kernels import validate as kv
+from simdutf_tpu_torch.ops import base64_ops as ob
 
 pytestmark = pytest.mark.cuda
 
@@ -130,4 +135,74 @@ def test_utf16_kernels_on_unaligned_views(cuda, be):
         assert _same(k16.utf16_reduce(w, L, be, what),
                      k16.utf16_reduce_ref(w, L, be, what))
     assert _same(kc8.to_utf8_compose(w, L, be), kc8.to_utf8_compose_ref(w, L, be))
+    torch.cuda.synchronize()
+
+
+def _inputs64():
+    """(name, chars) for the base64 kernels: MIME text, dense whitespace,
+    invalid chars at 0, at the 4096-char tile edges and at the end."""
+    rng = np.random.default_rng(2)
+    raw = pyb64.b64encode(rng.bytes(30_000))
+    mime = b"\r\n".join(raw[i: i + 76] for i in range(0, len(raw), 76))
+    out = [("mime", mime), ("ws_tiles", b" " * 9000 + b"TWFu" + b"\n" * 5000 + b"QQ"),
+           ("one", b"Q")]
+    for pos in (0, 4095, 4096, 8191, len(mime) - 1):
+        d = bytearray(mime)
+        d[pos] = ord("*")
+        out.append((f"bad@{pos}", bytes(d)))
+    alphabet = np.frombuffer(b"AZaz09+/-_= \t\r\n\x0c*", np.uint8)
+    for t in range(6):
+        out.append((f"fuzz{t}", bytes(rng.choice(alphabet, int(rng.integers(1, 30_000))))))
+    return out
+
+
+@pytest.mark.parametrize("name,data", _inputs64())
+@pytest.mark.parametrize("url,both", [(False, False), (True, False), (False, True)])
+@pytest.mark.parametrize("wide", [False, True])
+def test_base64_kernels_match_plain_versions(cuda, name, data, url, both, wide):
+    L = len(data)
+    n = -(-(L + 13) // 4) * 4  # chars past the length are garbage
+    buf = np.random.default_rng(n).integers(0, 256, n).astype(np.uint8)
+    buf[:L] = np.frombuffer(data, np.uint8)
+    if wide:
+        buf = buf.astype(np.uint16)
+        if name == "mime":  # a unit above 0xFF whose low byte is 'A'
+            buf[L // 3] = 0x141
+        x = torch.from_numpy(buf.view(np.int16)).to(cuda).view(torch.uint16)
+    else:
+        x = torch.from_numpy(buf).to(cuda)
+    assert _same(kc64.compact_codes(x, L, url, both), kc64.compact_codes_ref(x, L, url, both))
+    assert _same(kc64.compact_codes(x, n, url, both), kc64.compact_codes_ref(x, n, url, both))
+    assert _same(ob.decode_bulk_routed(x, L, url, both), ob.decode_bulk(x, L, url, both))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [0, 4, 12, 16, 20, 1028, 3 * 1536 * 7])
+@pytest.mark.parametrize("url", [False, True])
+def test_base64_pack_and_encode_match_plain_versions(cuda, n, url):
+    b = torch.from_numpy(np.random.default_rng(n).integers(0, 256, n).astype(np.uint8)).to(cuda)
+    assert _same(kb.pack(b), kb.pack_ref(b))
+    m = n // 3 * 3
+    assert _same(kb.encode(b[:m], url), kb.encode_ref(b[:m], url))
+    # views off the 16-byte grid take the byte path
+    if n > 16:
+        assert _same(kb.pack(b[4:]), kb.pack_ref(b[4:]))
+        assert _same(kb.encode(b[1:m - 2], url), kb.encode_ref(b[1:m - 2], url))
+    torch.cuda.synchronize()
+
+
+def test_base64_compact_on_unaligned_u16_view(cuda):
+    """A view one unit into its storage: the 16-byte loads give way to
+    unit loads, with the same results."""
+    raw = pyb64.b64encode(np.random.default_rng(3).bytes(20_000))
+    mime = np.frombuffer(b"\n".join(raw[i: i + 64] for i in range(0, len(raw), 64)), np.uint8)
+    buf = np.zeros(len(mime) + 17, np.uint16)
+    buf[1: len(mime) + 1] = mime
+    buf[5000] = ord("*")  # an invalid char at 4999
+    x = torch.from_numpy(buf.view(np.int16)).to(cuda).view(torch.uint16)[1:-4]
+    assert x.data_ptr() % 16 != 0
+    L = len(mime)
+    got = kc64.compact_codes(x, L, False, False)
+    assert _same(got, kc64.compact_codes_ref(x, L, False, False))
+    assert int(got[2]) == 4999
     torch.cuda.synchronize()

@@ -128,6 +128,11 @@ def test_port_runs_without_jax():
         "    assert getattr(su, f'validate_utf16{end}_with_errors')(bad).count == 10\n"
         "    assert getattr(su, f'count_utf16{end}')(w) == len(d.decode())\n"
         "    assert getattr(su, f'utf8_length_from_utf16{end}')(w) == len(d)\n"
+        "import base64\n"
+        "b = base64.b64encode(d)\n"
+        "assert su.binary_to_base64(d) == b\n"
+        "assert su.base64_to_binary(b[:40] + b'\\r\\n' + b[40:]) == (su.Result(su.error_code.SUCCESS, len(d)), d)\n"
+        "assert su.base64_to_binary(b[:40] + b'*' + b[40:])[0].count == 40\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
