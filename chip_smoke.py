@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
-Three paths, each driven through the public api: UTF-8 -> UTF-16LE/BE with
-UTF-8 validation and counts, UTF-16LE/BE -> UTF-8 with UTF-16 validation
-and counts, and forgiving base64 decode and encode. Phases, each fatal on
-failure:
+Four paths, each driven through the port's own api
+(``simdutf_tpu_torch.api`` on "cuda"): UTF-8 -> UTF-16LE/BE with UTF-8
+validation and counts, UTF-16LE/BE -> UTF-8 with UTF-16 validation and
+counts, forgiving base64 decode and encode, and UTF-8 <-> UTF-32 with
+UTF-32 validation and lengths. Nothing of the JAX package or of jax is
+imported. Phases, each fatal on failure:
   1. device  - name, compute capability (must be 9.0), nvidia-smi power limit;
   2. build   - nvcc builds csrc/*.cu (one process per source) into one library;
   3. parity  - every Hopper kernel against its plain torch version on the
@@ -17,10 +19,10 @@ failure:
                surrogate at length-1 whose low is stored at length, pairs
                straddling tile edges. Small buffers, garbage past the
                length, and the 64 MiB corpus with and without an error;
-  4. slice   - the public simdutf_tpu api with TorchImplementation("cuda")
-               installed, on the 64 MiB mixed corpus (bench.mixed_corpus)
-               and on its UTF-16LE/BE encoding, against CPython's codecs
-               and the golden tier, plus the uniform classes and the zh
+  4. slice   - the api on the 64 MiB mixed corpus (bench.mixed_corpus) and
+               on its UTF-16LE/BE encoding, against CPython's codecs, with
+               an error injected where a code point starts (so its code and
+               position are known), plus the uniform classes and the zh
                profile; every kernel of a path must have launched during
                that path's calls (counts reset just before, read just
                after);
@@ -29,17 +31,29 @@ failure:
                alphabet modes, invalid chars at 0, at tile edges, at
                length-1 and at length, all-whitespace tiles, garbage past
                the length, length == N, the MIME corpus with and without an
-               invalid char), then the public base64 api on the MIME corpus
-               (bench.py's: the base64 of 48 MiB of the mixed corpus,
-               CRLF every 76 chars) and its char16 form, against the raw
-               bytes, CPython's base64 and the golden tier;
-  5. times   - device-resident kernels, both transcodes and the routed
-               base64 decode and encode against their plain versions, with
-               CUDA events, and a torch.profiler breakdown of each
-               transcode and of the routed decode.
+               invalid char), then the base64 api on the MIME corpus
+               (bench.py's: the base64 of 48 MiB of the mixed corpus, CRLF
+               every 76 chars) and its char16 form, against the raw bytes
+               and CPython's base64;
+     parity32 and slice32 do the same for UTF-32: the UTF-32 kernels on
+               each class, on words above 0x10FFFF, surrogates and words
+               with the top bit set at 0, at tile edges, at length-1 and at
+               length, garbage past the length and the full corpus with and
+               without an error; compose32 on the UTF-8 parity inputs; then
+               the api on the 64 MiB corpus and on its UTF-32LE form
+               against codecs ``utf-32-le``;
+  5. times   - device-resident kernels and the routed calls against their
+               plain versions, with CUDA events, the device-to-device copy
+               rate, and a torch.profiler breakdown of each routed call.
 
-The last line of stdout is {"ok": true, "device": {...}}; it is printed
-only when every phase passed. Without CUDA the script exits with code 2.
+Before the last line it prints one JSON object with every kernel (launches
+on its path, largest error against its plain version, ms, plain ms, and
+``bound_ms``: the bytes it must move over the card's published 3.35 TB/s;
+``copy_bound_ms`` the same bytes at the measured copy rate) and the card's
+nvidia-smi name and power limit. The last line of stdout is
+{"ok": true, "device": {...}}; it is printed only when every phase passed.
+Without CUDA, or without the rest of the repo beside it, the script exits
+with code 2.
 """
 
 from __future__ import annotations
@@ -59,6 +73,8 @@ PASSES = ("census_utf8", "utf8_first_event", "utf8_count",
 PASSES16 = ("census_utf16", "utf16_first_bad", "utf16_count",
             "utf16_to_utf8_compose")
 PASSES64 = ("b64_compact", "b64_pack", "b64_encode")
+PASSES32 = ("utf32_first_bad", "utf32_count", "utf8_to_utf32_compose",
+            "utf32_to_utf8_compose")
 KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
     "census_utf8": ("simdutf_tpu_torch/csrc/census.cu",
                     "simdutf_tpu/kernels/census.py:204", []),
@@ -88,7 +104,20 @@ KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
                  ["simdutf_tpu/kernels/base64_kernel.py:308"]),
     "b64_encode": ("simdutf_tpu_torch/csrc/base64.cu",
                    "simdutf_tpu/kernels/base64_kernel.py:414", []),
+    "utf32_first_bad": ("simdutf_tpu_torch/csrc/utf32.cu",
+                        "simdutf_tpu/kernels/validate.py:551", []),
+    "utf32_count": ("simdutf_tpu_torch/csrc/utf32.cu",
+                    "simdutf_tpu/kernels/validate.py:570", []),
+    "utf8_to_utf32_compose": ("simdutf_tpu_torch/csrc/compose32.cu",
+                              "simdutf_tpu/kernels/butterfly32.py:187",
+                              ["simdutf_tpu/kernels/butterfly32.py:267"]),
+    "utf32_to_utf8_compose": ("simdutf_tpu_torch/csrc/composex.cu",
+                              "simdutf_tpu/kernels/butterflyx.py:122",
+                              ["simdutf_tpu/kernels/butterfly16.py:335"]),
 }
+#: HBM rate of one H100 SXM (NVIDIA's data sheet, at the 700 W limit): the
+#: bound of these kernels, which all stream their bytes
+PEAK_BYTES_PER_S = 3.35e12
 MODES64 = ((False, False), (True, False), (False, True))  # (url, both)
 
 
@@ -153,11 +182,20 @@ def profile_corpus(profile, nbytes: int, seed: int) -> bytes:
 
 def _whole(data: bytes) -> bytes:
     """``data`` without an incomplete sequence at its end."""
-    import numpy as np
+    for back in range(1, min(4, len(data)) + 1):
+        lead = data[-back]
+        if lead & 0xC0 != 0x80:  # the last lead: does its sequence fit?
+            need = (1 if lead < 0x80 else 2 if lead >> 5 == 6
+                    else 3 if lead >> 4 == 14 else 4)
+            return data if need <= back else data[:-back]
+    return data
 
-    from simdutf_tpu.golden import utf8 as g8
 
-    return data[: g8.trim_partial(np.frombuffer(data, np.uint8))]
+def lead_at(data: bytes, k: int) -> int:
+    """The first position at or after ``k`` where a code point starts."""
+    while data[k] & 0xC0 == 0x80:
+        k += 1
+    return k
 
 
 def class_corpus(ch: str, nbytes: int) -> bytes:
@@ -218,6 +256,13 @@ def _u16(text: str):
     import numpy as np
 
     return np.frombuffer(text.encode("utf-16-le"), np.uint16).copy()
+
+
+def _u32(text: str):
+    """Little-endian UTF-32 words of ``text``, a writable array."""
+    import numpy as np
+
+    return np.frombuffer(text.encode("utf-32-le"), np.uint32).copy()
 
 
 def parity16_cases(big: int):
@@ -456,20 +501,16 @@ def parity16_phase(device, big: int = CORPUS_BYTES) -> dict:
 
 
 def slice_phase(device, big: int = CORPUS_BYTES) -> dict:
-    """The public api with the port installed; returns the launch count
-    of each kernel during the main-path calls."""
-    import numpy as np
-
+    """The port's api on ``device``; returns the launch count of each
+    kernel during the main-path calls."""
     import bench
-    import simdutf_tpu as su
-    from simdutf_tpu.errors import error_code as ec
-    from simdutf_tpu.golden import utf8 as g8
     from tools.gen_corpus import PROFILES
 
-    import simdutf_tpu_torch
+    from simdutf_tpu_torch import api as su
+    from simdutf_tpu_torch.errors import error_code as ec
     from simdutf_tpu_torch.kernels import _build
 
-    su.set_active_implementation(simdutf_tpu_torch.TorchImplementation(device))
+    su.use_device(device)
     data = bench.mixed_corpus(big)
     want = data.decode("utf-8").encode("utf-16-le")
 
@@ -495,21 +536,19 @@ def slice_phase(device, big: int = CORPUS_BYTES) -> dict:
     check(res.is_ok and out == data.decode("utf-8").encode("utf-16-be"),
           "big-endian transcode differs from codecs")
 
-    bad = bytearray(data)
-    bad[len(bad) * 3 // 5] = 0xFF
-    bad = bytes(bad)
-    g_res, g_out = g8.convert_to_utf16_with_errors(np.frombuffer(bad, np.uint8),
-                                                   False)
+    # 0xFF where a code point starts: HEADER_BITS there, and the output is
+    # the prefix before it
+    k = lead_at(data, len(data) * 3 // 5)
+    bad = data[:k] + b"\xff" + data[k + 1:]
     res, out = su.convert_utf8_to_utf16le_with_errors(bad)
     val = su.validate_utf8_with_errors(bad)
-    check((res.error, res.count) == (g_res.error, g_res.count),
-          f"injected error: port {res} golden {g_res}")
-    check((val.error, val.count) == (g_res.error, g_res.count),
-          f"injected error, validate: port {val} golden {g_res}")
-    check(out == g_out.tobytes()
-          and out == bad[: res.count].decode("utf-8").encode("utf-16-le"),
+    check((res.error, res.count) == (ec.HEADER_BITS, k),
+          f"injected 0xFF at {k}: port {res}")
+    check((val.error, val.count) == (ec.HEADER_BITS, k),
+          f"injected 0xFF at {k}, validate: port {val}")
+    check(out == data[:k].decode("utf-8").encode("utf-16-le"),
           "partial output is not the valid prefix")
-    log(f"slice: injected error reported as ({res.error.name}, {res.count}), "
+    log(f"slice: injected 0xFF reported as ({res.error.name}, {res.count}), "
         f"partial output = valid prefix ({len(out) // 2} units)")
 
     inputs = [(c, class_corpus(ch, big // 4))
@@ -526,20 +565,19 @@ def slice_phase(device, big: int = CORPUS_BYTES) -> dict:
 
 
 def slice16_phase(device, big: int = CORPUS_BYTES) -> dict:
-    """The public UTF-16 -> UTF-8 api with the port installed, on the
-    UTF-16LE/BE encoding of the 64 MiB corpus; returns the launch count of
+    """The port's UTF-16 -> UTF-8 api on ``device``, on the UTF-16LE/BE
+    encoding of the 64 MiB corpus; returns the launch count of
     each UTF-16 kernel during the main-path calls."""
     import numpy as np
 
     import bench
-    import simdutf_tpu as su
-    from simdutf_tpu.golden import utf16 as g16
     from tools.gen_corpus import PROFILES
 
-    import simdutf_tpu_torch
+    from simdutf_tpu_torch import api as su
+    from simdutf_tpu_torch.errors import error_code as ec
     from simdutf_tpu_torch.kernels import _build
 
-    su.set_active_implementation(simdutf_tpu_torch.TorchImplementation(device))
+    su.use_device(device)
     data = bench.mixed_corpus(big)
     text = data.decode("utf-8")
     le, be = text.encode("utf-16-le"), text.encode("utf-16-be")
@@ -577,15 +615,13 @@ def slice16_phase(device, big: int = CORPUS_BYTES) -> dict:
     while (bad[k - 1] & 0xFC00) == 0xD800:
         k += 1
     bad[k] = 0xDC00
-    g_res, g_out = g16.convert_to_utf8_with_errors(bad, False)
     res, out = su.convert_utf16le_to_utf8_with_errors(bad.tobytes())
     val = su.validate_utf16le_with_errors(bad.tobytes())
-    check((res.error, res.count) == (g_res.error, g_res.count) == (g_res.error, k),
-          f"injected lone surrogate: port {res} golden {g_res}")
-    check((val.error, val.count) == (g_res.error, g_res.count),
-          f"injected lone surrogate, validate: port {val} golden {g_res}")
-    check(out == g_out.tobytes()
-          and out == bad[:k].tobytes().decode("utf-16-le").encode("utf-8"),
+    check((res.error, res.count) == (ec.SURROGATE, k),
+          f"injected lone surrogate at {k}: port {res}")
+    check((val.error, val.count) == (ec.SURROGATE, k),
+          f"injected lone surrogate at {k}, validate: port {val}")
+    check(out == bad[:k].tobytes().decode("utf-16-le").encode("utf-8"),
           "partial output is not the valid prefix")
     res_be, out_be = su.convert_utf16be_to_utf8_with_errors(bad.byteswap().tobytes())
     check((res_be.error, res_be.count) == (res.error, res.count) and out_be == out,
@@ -668,21 +704,18 @@ def parity64_phase(device, big: int = CORPUS_BYTES) -> dict:
 
 
 def slice64_phase(device, big: int = CORPUS_BYTES) -> dict:
-    """The public base64 api with the port installed, on the MIME corpus
-    and its char16 form; returns the launch count of each base64 kernel
+    """The port's base64 api on ``device``, on the MIME corpus and its
+    char16 form; returns the launch count of each base64 kernel
     during the main-path calls."""
     import base64
 
     import numpy as np
 
-    import simdutf_tpu as su
-    from simdutf_tpu.errors import error_code as ec
-    from simdutf_tpu.golden import base64_impl as gb
-
-    import simdutf_tpu_torch
+    from simdutf_tpu_torch import api as su
+    from simdutf_tpu_torch.errors import error_code as ec
     from simdutf_tpu_torch.kernels import _build
 
-    su.set_active_implementation(simdutf_tpu_torch.TorchImplementation(device))
+    su.use_device(device)
     raw, mime = mime_corpus(big)
     mime16 = np.frombuffer(mime, np.uint8).astype(np.uint16)
 
@@ -704,26 +737,212 @@ def slice64_phase(device, big: int = CORPUS_BYTES) -> dict:
         f"char16, equal to the raw bytes; encode equal to base64.b64encode "
         f"(default and url); launches {launches}")
 
+    # '*' in place of an alphabet char: INVALID_BASE64_CHARACTER there,
+    # and the bytes of the whole quads before it
     bad = np.frombuffer(mime, np.uint8).copy()
     k = len(bad) * 3 // 5
+    while bad[k] in (ord("\r"), ord("\n")):
+        k += 1
     bad[k] = ord("*")
-    g_full, g_out = gb.decode(bad, 0, gb.LOOSE)
+    quads = (k - mime.count(b"\r\n", 0, k) * 2) // 4
     full, out = su.base64_to_binary_details(bad)
-    check((full, out) == (g_full, g_out.tobytes()) and full.input_count == k,
-          f"injected invalid char: port {full} golden {g_full}")
+    check((full.error, full.input_count, full.output_count)
+          == (ec.INVALID_BASE64_CHARACTER, k, 3 * quads)
+          and out == raw[: 3 * quads],
+          f"injected invalid char at {k}: port {full}")
     full16, out16 = su.base64_to_binary_details(bad.astype(np.uint16))
     check((full16, out16) == (full, out), "char16 injected invalid char differs")
     log(f"slice64: injected invalid char reported as ({full.error.name}, "
-        f"{full.input_count}), partial output {full.output_count} B as golden")
+        f"{full.input_count}), partial output {full.output_count} B = the raw "
+        f"bytes of the {quads} whole quads before it")
+    check(su.maximal_binary_length_from_base64(base64.b64encode(raw)) == len(raw)
+          and su.base64_length_from_binary(len(raw)) == len(enc),
+          "base64 length helpers")
+    return launches
 
-    # a short capacity takes the golden tier's capacity-limited loop; the
-    # maximal binary length takes the port's decode
-    for cap in (1000, su.maximal_binary_length_from_base64(mime)):
-        got = su.base64_to_binary_safe(mime, cap)
-        res, want = gb.decode_safe(np.frombuffer(mime, np.uint8), cap)
-        check(got == (res, want.tobytes()), f"safe decode at capacity {cap}: {got[0]} vs {res}")
-    log("slice64: base64_to_binary_safe equals golden at capacity 1000 and at "
-        "the maximal binary length")
+
+def parity32_cases(big: int):
+    """(name, words, buffer size in words, garbage past the length) for the
+    UTF-32 kernel parity phase."""
+    import numpy as np
+
+    import bench
+
+    rng = np.random.default_rng(SEED + 32)
+    bad_words = (0x110000, 0xD800, 0xDFFF, 0x80000000, 0xFFFFFFFF)
+    cases = []
+    for cls, ch in (("ascii", "a"), ("u2", "é"), ("u3", "東"),
+                    ("astral", "\U0001f642")):
+        for size in (1, 2048 * 3 + 17, 100_003):
+            cases.append((f"{cls}-{size}", _u32(ch * size)))
+    mixed = _u32(bench.mixed_corpus(300_000).decode("utf-8", "ignore"))
+    cases.append(("mixed-300k", mixed))
+    cases.append(("empty", _u32("")))
+    # invalid words at 0, at the 2048-word compose tile edges, at length-1
+    for pos in (0, 1, 2047, 2048, 2049, 4095, 4096, 8191, 8192, 19_999):
+        for word in bad_words:
+            d = mixed[:20_000].copy()
+            d[pos] = word
+            cases.append((f"{word:x}@{pos}", d))
+    alphabet = ["a", " ", "é", "Ж", "東", "\U0001f642", "\U0010ffff"]
+    for t in range(20):
+        size = int(rng.integers(1, 40_000))
+        d = _u32("".join(alphabet[i]
+                         for i in rng.integers(0, len(alphabet), size)))
+        for _ in range(int(rng.integers(0, 3)) if t % 2 else 0):
+            d[int(rng.integers(0, len(d)))] = bad_words[int(rng.integers(5))]
+        cases.append((f"fuzz{t}", d))
+    corpus = _u32(_whole(bench.mixed_corpus(big)).decode("utf-8"))
+    cases.append(("mixed-64MiB", corpus))
+    bad = corpus.copy()
+    bad[len(bad) // 2 + 1] = 0xD800
+    cases.append(("mixed-64MiB-err", bad))
+
+    out = []
+    for i, (name, words) in enumerate(cases):
+        pad = (0, 8, 1000 + i)[i % 3]
+        out.append((name, words, len(words) + pad, i % 3 == 2))
+    # an invalid word stored at the length, outside the range
+    out.append(("bad@len", mixed[:5000], 5008, False))
+    return out
+
+
+def parity32_phase(device, big: int = CORPUS_BYTES) -> dict:
+    """Each UTF-32 kernel against its plain version on ``device``, and
+    compose32 on the UTF-8 parity inputs; returns the largest error seen
+    per kernel (all must be 0)."""
+    import numpy as np
+    import torch
+
+    from simdutf_tpu_torch.kernels import compose32 as kc32
+    from simdutf_tpu_torch.kernels import composex as kcx
+    from simdutf_tpu_torch.kernels import validate as kv
+
+    def record(k, what, kern, plain):
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        e = _max_err(kern, plain)
+        errs[k] = max(errs[k], e)
+        check(e == 0, f"parity {k} on {what}: max abs err {e}")
+
+    errs = dict.fromkeys(PASSES32, 0)
+    cases = parity32_cases(big)
+    for name, words, n, garbage in cases:
+        L = len(words)
+        buf = np.zeros(n, np.uint32)
+        if garbage:
+            buf[:] = np.random.default_rng(L).integers(0, 1 << 32, n, dtype=np.uint64)
+        buf[:L] = words
+        if name == "bad@len":
+            buf[L] = 0xD800
+        w = torch.from_numpy(buf.view(np.int32)).to(device)
+        what = f"{name} (n={n}, length={L})"
+        record("utf32_first_bad", what, kv.utf32_first_bad(w, L),
+               kv.utf32_first_bad_ref(w, L))
+        record("utf32_count", what,
+               tuple(kv.utf32_count(w, L, m) for m in kv._MODES32),
+               tuple(kv.utf32_count_ref(w, L, m) for m in kv._MODES32))
+        record("utf32_to_utf8_compose", what, kcx.u32_to_utf8_compose(w, L),
+               kcx.u32_to_utf8_compose_ref(w, L))
+    cases8 = parity_cases(big)
+    for name, data, n, garbage in cases8:
+        L = len(data)
+        buf = np.zeros(n, np.uint8)
+        buf[:L] = np.frombuffer(data, np.uint8)
+        if garbage:
+            buf[L:] = np.random.default_rng(L).integers(0, 256, n - L)
+        x = torch.from_numpy(buf).to(device)
+        record("utf8_to_utf32_compose", f"{name} (n={n}, length={L})",
+               kc32.to_utf32_compose(x, L), kc32.to_utf32_compose_ref(x, L))
+    log(f"parity32: {len(cases)} word buffers and {len(cases8)} UTF-8 buffers, "
+        f"every UTF-32 kernel bit-identical to its plain version")
+    return errs
+
+
+def slice32_phase(device, big: int = CORPUS_BYTES) -> dict:
+    """The port's UTF-8 <-> UTF-32 api on ``device``, on the 64 MiB mixed
+    corpus and its UTF-32LE form; returns the launch count of each UTF-32
+    kernel during the main-path calls."""
+    import numpy as np
+
+    import bench
+    from tools.gen_corpus import PROFILES
+
+    from simdutf_tpu_torch import TorchImplementation
+    from simdutf_tpu_torch import api as su
+    from simdutf_tpu_torch.errors import error_code as ec
+    from simdutf_tpu_torch.kernels import _build
+
+    su.use_device(device)
+    data = bench.mixed_corpus(big)
+    text = data.decode("utf-8")
+    w32 = text.encode("utf-32-le")
+    words = len(w32) // 4
+
+    _build.reset_launches()
+    res, out = su.convert_utf8_to_utf32_with_errors(data)
+    val = su.validate_utf32_with_errors(w32)
+    n8 = su.utf8_length_from_utf32(w32)
+    n16 = su.utf16_length_from_utf32(w32)
+    res8, out8 = su.convert_utf32_to_utf8_with_errors(w32)
+    launches = dict(_build.LAUNCHES)
+
+    check(res.is_ok and res.count == words, f"utf8 -> utf32 result {res}")
+    check(out == w32, "utf8 -> utf32 output differs from codecs")
+    check(val.is_ok and val.count == words, f"validate_utf32 {val}")
+    check(n8 == len(data), f"utf8_length_from_utf32 {n8} != {len(data)}")
+    check(n16 == len(text.encode("utf-16-le")) // 2, f"utf16_length_from_utf32 {n16}")
+    check(res8.is_ok and res8.count == len(data), f"utf32 -> utf8 result {res8}")
+    check(out8 == data, "utf32 -> utf8 output differs from the corpus bytes")
+    for k in PASSES32:
+        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the main path")
+    log(f"slice32: {len(data)} B -> {words} words -> {len(data)} B, equal to "
+        f"codecs utf-32-le; launches {launches}")
+    check(su.convert_valid_utf8_to_utf32(data) == w32
+          and su.convert_valid_utf32_to_utf8(w32) == data,
+          "convert_valid_utf8_to_utf32 / convert_valid_utf32_to_utf8 differ")
+
+    # invalid words at a known position: their code there, and the prefix
+    arr = np.frombuffer(w32, np.uint32)
+    k = words * 3 // 5
+    for word, code in ((0xD800, ec.SURROGATE), (0x110000, ec.TOO_LARGE),
+                       (0xFFFFFFFF, ec.TOO_LARGE)):
+        bad = arr.copy()
+        bad[k] = word
+        res, out = su.convert_utf32_to_utf8_with_errors(bad)
+        val = su.validate_utf32_with_errors(bad)
+        check((res.error, res.count) == (val.error, val.count) == (code, k),
+              f"injected {word:#x} at {k}: port {res}, validate {val}")
+        check(out == text[:k].encode("utf-8"), "partial output is not the valid prefix")
+    # a second opinion on the last: the port on the CPU over a window
+    lo = max(0, k - (1 << 20))
+    cpu_res, cpu_out = TorchImplementation("cpu").convert_utf32_to_utf8_with_errors(
+        bad[lo:k + (1 << 20)])
+    check((cpu_res.error, cpu_res.count) == (ec.TOO_LARGE, k - lo)
+          and cpu_out.tobytes() == text[lo:k].encode("utf-8"),
+          f"CPU window around the injected word: {cpu_res}")
+    k8 = lead_at(data, len(data) * 3 // 5)
+    bad8 = data[:k8] + b"\xff" + data[k8 + 1:]
+    res, out = su.convert_utf8_to_utf32_with_errors(bad8)
+    check((res.error, res.count) == (ec.HEADER_BITS, k8)
+          and out == data[:k8].decode("utf-8").encode("utf-32-le"),
+          f"injected 0xFF at {k8}: port {res}")
+    log(f"slice32: injected words reported at {k} (SURROGATE, TOO_LARGE x2), "
+        f"0xFF at byte {k8} as ({res.error.name}, {res.count}); partial "
+        f"outputs = valid prefixes; CPU window agrees")
+
+    inputs = [(c, class_corpus(ch, big // 4))
+              for c, ch in (("ascii", "a"), ("u2", "é"), ("u3", "東"),
+                            ("u4", "🙂"))]
+    inputs.append(("zh", profile_corpus(PROFILES["zh"], big // 4, SEED)))
+    for name, d in inputs:
+        res, out = su.convert_utf8_to_utf32_with_errors(d)
+        check(res.is_ok and out == d.decode("utf-8").encode("utf-32-le"),
+              f"{name}: utf8 -> utf32 differs from codecs")
+        res8, out8 = su.convert_utf32_to_utf8_with_errors(out)
+        check(res8.is_ok and out8 == d, f"{name}: utf32 -> utf8 differs")
+    log(f"slice32: classes {[n for n, _ in inputs]} at {big // 4} B of UTF-8 "
+        f"round-trip equal to codecs")
     return launches
 
 
@@ -765,10 +984,10 @@ def _time_pairs(pairs: dict, nbytes: int, card: str) -> dict:
     return ms
 
 
-def times_phase(card: str, big: int = CORPUS_BYTES) -> dict:
+def times_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict]:
     """ms of each kernel and of its plain version at the main paths'
     shapes (the 64 MiB mixed corpus, and its UTF-16LE encoding,
-    device-resident)."""
+    device-resident), and the bytes each kernel must move."""
     import numpy as np
     import torch
 
@@ -820,17 +1039,32 @@ def times_phase(card: str, big: int = CORPUS_BYTES) -> dict:
         "to_utf8 (ops.utf16, routed)": (lambda: o16.to_utf8(w, U, False),
                                         plain_to_utf8),
     }, 2 * U, card))
-    y = torch.empty_like(x)
-    copy = cuda_ms(lambda: y.copy_(x))
-    log(f"time d2d copy of {x.numel()} B: {copy:.4f} ms, "
-        f"{2 * x.numel() / copy / 1e6:.1f} GB/s read+write [{card}]")
     breakdown(lambda: o8.to_utf16(x, L, False), "to_utf16 (mixed 64 MiB)", card)
     breakdown(lambda: o16.to_utf8(w, U, False),
               f"to_utf8 (mixed 64 MiB as UTF-16LE, {U} units)", card)
-    return ms
+    # bytes each kernel must move: its input read once, its whole output
+    # buffer written once
+    moved = {"census_utf8": L, "utf8_first_event": L, "utf8_count": L,
+             "utf8_to_utf16_compose": L + 2 * x.numel(),
+             "census_utf16": 2 * U, "utf16_first_bad": 2 * U,
+             "utf16_count": 2 * U, "utf16_to_utf8_compose": 2 * U + 3 * w.numel()}
+    return ms, moved
 
 
-def times64_phase(card: str, big: int = CORPUS_BYTES) -> dict:
+def copy_phase(card: str, nbytes: int = 256 * MIB) -> float:
+    """The card's device-to-device copy rate, bytes read + written per
+    second, on a buffer five times the L2 cache."""
+    import torch
+
+    x = torch.ones(nbytes, dtype=torch.uint8, device="cuda")
+    y = torch.empty_like(x)
+    ms = cuda_ms(lambda: y.copy_(x))
+    log(f"time d2d copy of {nbytes} B: {ms:.4f} ms, "
+        f"{2 * nbytes / ms / 1e6:.1f} GB/s read+write [{card}]")
+    return 2 * nbytes / ms * 1e3
+
+
+def times64_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict]:
     """ms of each base64 kernel and of its plain version at the base64
     path's shapes (the MIME corpus in its bucket, device-resident; its
     dense codes; the raw bytes), of the routed decode and the encode, and
@@ -838,7 +1072,7 @@ def times64_phase(card: str, big: int = CORPUS_BYTES) -> dict:
     import numpy as np
     import torch
 
-    import simdutf_tpu as su
+    from simdutf_tpu_torch import api as su
     from simdutf_tpu_torch import impl
     from simdutf_tpu_torch.kernels import base64_kernel as kb
     from simdutf_tpu_torch.kernels import compact64 as kc64
@@ -870,12 +1104,71 @@ def times64_phase(card: str, big: int = CORPUS_BYTES) -> dict:
             t0 = time.perf_counter()
             fn()
             host.append((time.perf_counter() - t0) * 1e3)
-        log(f"time public su.{what} (host clock, bytes in and out of host "
+        log(f"time api.{what} (host clock, bytes in and out of host "
             f"memory): {statistics.median(host):.2f} ms, "
             f"{nbytes / statistics.median(host) / 1e6:.2f} GB/s in [{card}]")
     breakdown(lambda: ob.decode_bulk_routed(x, L, False, False),
               f"base64 decode (MIME, {L} chars)", card)
-    return ms
+    moved = {"b64_compact": L + x.numel(),
+             "b64_pack": codes.numel() + codes.numel() // 4 * 3,
+             "b64_encode": r.numel() + r.numel() // 3 * 4}
+    return ms, moved
+
+
+def times32_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict]:
+    """ms of each UTF-32 kernel and of its plain version at the UTF-32
+    paths' shapes (the 64 MiB mixed corpus and its UTF-32LE form in a
+    64 Mi-word bucket, device-resident), of both routed transcodes, with
+    a torch.profiler breakdown of each."""
+    import numpy as np
+    import torch
+
+    import bench
+    from simdutf_tpu_torch import impl
+    from simdutf_tpu_torch.kernels import census as kcen
+    from simdutf_tpu_torch.kernels import compose32 as kc32
+    from simdutf_tpu_torch.kernels import composex as kcx
+    from simdutf_tpu_torch.kernels import validate as kv
+    from simdutf_tpu_torch.ops import utf8 as o8
+    from simdutf_tpu_torch.ops import utf32 as o32
+
+    data = bench.mixed_corpus(big)
+    x, L = impl.to_device(*impl._pad(np.frombuffer(data, np.uint8)), "cuda")
+    words = np.frombuffer(data.decode("utf-8").encode("utf-32-le"), np.uint32)
+    w, W = impl.to_device(*impl._pad(words), "cuda")
+    torch.cuda.synchronize()
+
+    def plain_to_utf32():
+        int(kcen.census_bits_ref(x, L))  # the route's one sync
+        return kc32.to_utf32_compose_ref(x, L)
+
+    def plain_to_utf8():
+        lo, hi = torch.aminmax(w[:W])  # the census, with its one sync
+        torch.stack([lo.to(torch.int64), hi.to(torch.int64),
+                     kv.utf32_first_bad_ref(w, W)]).tolist()
+        return kcx.u32_to_utf8_compose_ref(w, W)
+
+    ms = _time_pairs({
+        "utf32_first_bad": (lambda: kv.utf32_first_bad(w, W),
+                            lambda: kv.utf32_first_bad_ref(w, W)),
+        "utf32_count": (lambda: kv.utf32_count(w, W, "utf8len"),
+                        lambda: kv.utf32_count_ref(w, W, "utf8len")),
+        "utf32_to_utf8_compose": (lambda: kcx.u32_to_utf8_compose(w, W),
+                                  lambda: kcx.u32_to_utf8_compose_ref(w, W)),
+        "to_utf8 (ops.utf32, routed)": (lambda: o32.to_utf8(w, W), plain_to_utf8),
+    }, 4 * W, card)
+    ms.update(_time_pairs({
+        "utf8_to_utf32_compose": (lambda: kc32.to_utf32_compose(x, L),
+                                  lambda: kc32.to_utf32_compose_ref(x, L)),
+        "to_utf32 (ops.utf8, routed)": (lambda: o8.to_utf32(x, L), plain_to_utf32),
+    }, L, card))
+    breakdown(lambda: o8.to_utf32(x, L), f"to_utf32 (mixed 64 MiB, {L} B)", card)
+    breakdown(lambda: o32.to_utf8(w, W),
+              f"utf32 to_utf8 (mixed 64 MiB as UTF-32LE, {W} words)", card)
+    moved = {"utf32_first_bad": 4 * W, "utf32_count": 4 * W,
+             "utf8_to_utf32_compose": L + 4 * x.numel(),
+             "utf32_to_utf8_compose": 4 * W + 4 * w.numel()}
+    return ms, moved
 
 
 def breakdown(fn, what: str, card: str, iters: int = 20) -> None:
@@ -929,22 +1222,32 @@ def main() -> int:
         launches16 = slice16_phase("cuda")
         errs.update(parity64_phase("cuda"))
         launches64 = slice64_phase("cuda")
-        ms = times_phase(card)
-        ms.update(times64_phase(card))
-        check("jax" not in sys.modules, "jax was imported")
+        errs.update(parity32_phase("cuda"))
+        launches32 = slice32_phase("cuda")
+        rate = copy_phase(card)
+        ms, moved = times_phase(card)
+        for phase in (times64_phase, times32_phase):
+            more_ms, more_moved = phase(card)
+            ms.update(more_ms)
+            moved.update(more_moved)
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "simdutf_tpu"))
+        check(not loaded, f"jax or the JAX package was imported: {loaded}")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
-    launches = {k: got[k] for got, path in ((launches8, PASSES),
-                                            (launches16, PASSES16),
-                                            (launches64, PASSES64))
-                for k in path}
+    paths = ((launches8, PASSES), (launches16, PASSES16),
+             (launches64, PASSES64), (launches32, PASSES32))
+    launches = {k: got[k] for got, path in paths for k in path}
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "also_replaces": KERNELS[k][2],
          "launches": launches[k], "max_abs_err": errs[k],
-         "ms": ms[k][0], "plain_ms": ms[k][1]}
-        for k in PASSES + PASSES16 + PASSES64
+         "ms": ms[k][0], "plain_ms": ms[k][1],
+         "bytes": moved[k], "bound_ms": moved[k] / PEAK_BYTES_PER_S * 1e3,
+         "bound_by": "bytes", "copy_bound_ms": moved[k] / rate * 1e3,
+         "library_ms": None}
+        for _, path in paths for k in path
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

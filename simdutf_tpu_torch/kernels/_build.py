@@ -52,6 +52,12 @@ SIGNATURES = {
     "b64_compact16_emit": (_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P),
     "b64_pack": (_P, _I64, _P, _P),
     "b64_encode": (_P, _I64, _I32, _P, _P),
+    "utf32_first_bad": (_P, _I64, _P, _P),
+    "utf32_count": (_P, _I64, _I32, _P, _P),
+    "compose32_count": (_P, _I64, _I32, _P, _P, _P, _P),
+    "compose32_emit": (_P, _I64, _I32, _P, _P, _P),
+    "composex_count": (_P, _I64, _I32, _P, _P, _P, _P),
+    "composex_emit": (_P, _I64, _I32, _P, _P, _P),
 }
 
 #: kernel launches per wrapper name since the last :func:`reset_launches`
@@ -171,6 +177,12 @@ def check_units(w: torch.Tensor, length: int) -> str:
     """:func:`check_bytes` for a buffer of UTF-16 code units: a contiguous
     1-D uint16 tensor, ``length`` counted in units."""
     return _check(w, length, torch.uint16)
+
+
+def check_words(w: torch.Tensor, length: int) -> str:
+    """:func:`check_bytes` for a buffer of UTF-32 words: a contiguous 1-D
+    int32 tensor holding the uint32 words' bits, ``length`` in words."""
+    return _check(w, length, torch.int32)
 
 
 def _check(b: torch.Tensor, length: int, dtype: torch.dtype) -> str:

@@ -1,11 +1,14 @@
-"""UTF-8 first-error and count kernels.
+"""UTF-8 and UTF-32 first-error and count kernels.
 
 Port of simdutf_tpu/kernels/validate.py: ``utf8_first_event_len`` and
-``utf8_first_event`` (Pallas ``_utf8_kernel_len`` / ``_utf8_kernel``) and
-the ``_count_call`` family (``_count_kernel``: ``utf8_count``,
-``utf8_utf16_length``, ``latin1_utf8_length``). On a CUDA tensor the
-wrappers launch ``utf8_first_event`` / ``utf8_count`` (csrc/validate.cu);
-on a CPU tensor they run the plain versions beside them.
+``utf8_first_event`` (Pallas ``_utf8_kernel_len`` / ``_utf8_kernel``), the
+``_count_call`` family (``_count_kernel``: ``utf8_count``,
+``utf8_utf16_length``, ``latin1_utf8_length``), ``utf32_first_bad``
+(``_utf32_validate_kernel``) and ``utf32_count`` (``_utf32_len_kernel``,
+the JAX ``utf32_reduce``). On a CUDA tensor the wrappers launch
+``utf8_first_event`` / ``utf8_count`` (csrc/validate.cu) or
+``utf32_first_bad`` / ``utf32_count`` (csrc/utf32.cu); on a CPU tensor
+they run the plain versions beside them.
 
 Both Hopper kernels are streaming reads of the in-range bytes, so their
 floor is HBM bytes; the count reaches it, the first-event kernel is bound
@@ -14,8 +17,8 @@ result in an output block across a sequential grid; Hopper blocks run in
 no order, so each warp reduces its threads and makes one atomic update (a
 64-bit atomicMin on the key pos << 8 | code, an atomicAdd on the count).
 
-Inputs are flat 1-D uint8 tensors; the TPU's (R + 64, 512) row layout with
-a zero halo row is not needed here.
+Inputs are flat 1-D uint8 tensors, or int32 tensors of UTF-32 words; the
+TPU's (R + 64, 512) and (R, 512) row layouts are not needed here.
 """
 
 from __future__ import annotations
@@ -92,3 +95,63 @@ def utf8_utf16_length(b: torch.Tensor, length: int) -> torch.Tensor:
 def latin1_utf8_length(b: torch.Tensor, length: int) -> torch.Tensor:
     """utf8_length_from_latin1: length + count of high bytes."""
     return _count_call(b, length, "latin1")
+
+
+# -- UTF-32: port of validate.utf32_first_bad (Pallas _utf32_validate_kernel)
+# and validate.utf32_reduce (_utf32_len_kernel); csrc/utf32.cu ------------
+
+_MODES32 = {"utf8len": 0, "utf16len": 1}
+
+
+def _mode32(what: str) -> int:
+    if what not in _MODES32:
+        raise ValueError(f"unknown count mode {what!r}")
+    return _MODES32[what]
+
+
+def utf32_first_bad_ref(w: torch.Tensor, length: int) -> torch.Tensor:
+    """Plain version: ops/utf32.native + first_error. Returns the least
+    invalid-word position as a 0-d int64 tensor, BIG when valid."""
+    from ..ops import utf32 as o32
+
+    return o32.first_error(o32.native(w, length), length)[0]
+
+
+def utf32_first_bad(w: torch.Tensor, length: int) -> torch.Tensor:
+    """Least index ``< length`` of a word above 0x10FFFF (a word >= 2^31,
+    negative in ``w``'s int32, included) or in D800-DFFF, as a 0-d int64
+    tensor on ``w``'s device; BIG when valid."""
+    length = int(length)
+    if _build.check_words(w, length) == "cpu":
+        return utf32_first_bad_ref(w, length)
+    out = torch.full((1,), BIG, dtype=torch.int64, device=w.device)
+    _build.call("utf32_first_bad", w.data_ptr(), length, out.data_ptr())
+    _build.count_launch("utf32_first_bad")
+    return out[0]
+
+
+def utf32_count_ref(w: torch.Tensor, length: int, what: str) -> torch.Tensor:
+    """Plain version of the two modes, as a 0-d int64 tensor: "utf8len" =
+    UTF-8 bytes, "utf16len" = UTF-16 units of ``w[:length]``, by the
+    scalar/utf32.h ladder (validate.py:510-520): a negative int32 word
+    (>= 2^31 as uint32) counts above every threshold."""
+    _mode32(what)
+    x = w[:length]
+    neg = x < 0
+    n = (x > 0xFFFF) | neg
+    if what == "utf8len":
+        n = n.to(torch.int64) + ((x > 0x7F) | neg) + ((x > 0x7FF) | neg)
+    return (x.shape[0] + n.sum()).to(torch.int64)
+
+
+def utf32_count(w: torch.Tensor, length: int, what: str) -> torch.Tensor:
+    """Count ``what`` ("utf8len" or "utf16len") over ``w[:length]``, as a
+    0-d int64 tensor on ``w``'s device (see :func:`utf32_count_ref`)."""
+    length = int(length)
+    mode = _mode32(what)
+    if _build.check_words(w, length) == "cpu":
+        return utf32_count_ref(w, length, what)
+    out = torch.zeros(1, dtype=torch.int64, device=w.device)
+    _build.call("utf32_count", w.data_ptr(), length, mode, out.data_ptr())
+    _build.count_launch("utf32_count")
+    return out[0]

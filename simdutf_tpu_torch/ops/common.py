@@ -37,6 +37,32 @@ def positions(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int64, device=device)
 
 
+def scalar(x: int, device) -> torch.Tensor:
+    """``x`` as a 0-d int64 tensor on ``device``."""
+    return torch.full((), x, dtype=torch.int64, device=device)
+
+
+def count_before(off: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``off[pos]`` of an exclusive scan, the output before an error at
+    ``pos``, as a 0-d int64 tensor; 0 when ``pos`` is BIG (no error) and
+    for an empty scan. ``off[0] == 0``, so ``pos == 0`` needs no case."""
+    n = off.shape[0]
+    if n == 0:
+        return scalar(0, off.device)
+    at = off.index_select(0, pos.clamp(max=n - 1).view(1))[0]
+    return torch.where(pos == BIG, 0, at)
+
+
+def bytes_out(by: torch.Tensor, count: int, size: int) -> torch.Tensor:
+    """int32 byte values -> uint8[size]: the first ``count`` of ``by``,
+    zero after them."""
+    idx = positions(by.shape[0], by.device)
+    by = torch.where(idx < count, by & 0xFF, torch.zeros_like(by))
+    out = torch.zeros(size, dtype=torch.uint8, device=by.device)
+    out[: by.shape[0]] = by.to(torch.uint8)
+    return out
+
+
 def zero_tail(b: torch.Tensor, length: int) -> torch.Tensor:
     """Force elements at/after ``length`` to zero, so a padded tail reads
     like the reference's zero-padded last block."""
@@ -87,11 +113,14 @@ def tile_glue(counts: torch.Tensor, keys: torch.Tensor, prefix: torch.Tensor):
     inc = torch.cumsum(counts, 0, dtype=torch.int64)
     off = inc - counts
     total = inc[-1]
-    first = torch.argmin(keys)
-    key = keys[first]
+    # a 1-element index keeps the reads on the device: indexing with the
+    # 0-d argmin would make torch read it back to the host first
+    first = torch.argmin(keys).view(1)
+    key = keys.index_select(0, first)[0]
     err_pos, err_code = key >> 8, key & 0xFF
     err_any = err_pos != BIG
-    err_len = torch.where(err_any, off[first] + prefix[first], 0)
+    before = off.index_select(0, first) + prefix.index_select(0, first)
+    err_len = torch.where(err_any, before[0], 0)
     out_len = torch.where(err_any, err_len, total)
     return off, total, err_any, err_pos, err_code, err_len, out_len
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from simdutf_tpu.errors import error_code as ec
+from ..errors import error_code as ec
 
 from ..kernels import census as kcen
 from ..kernels import compose8 as kc8
@@ -22,9 +22,12 @@ from ..kernels import utf16_kernels as k16
 from .common import (
     BIG,
     bswap16,
+    bytes_out,
+    count_before,
     excl_scan,
     positions,
     route,
+    scalar,
     scatter_writes,
     shift_left,
     shift_right,
@@ -34,9 +37,6 @@ from .common import (
 
 _SURROGATE = int(ec.SURROGATE)
 
-
-def _scalar(x: int, device) -> torch.Tensor:
-    return torch.full((), x, dtype=torch.int64, device=device)
 
 
 def _native16(w: torch.Tensor, big_endian: bool) -> torch.Tensor:
@@ -56,7 +56,7 @@ def first_error(wn: torch.Tensor, length: int) -> torch.Tensor:
     zeroed) as a 0-d int64 tensor; BIG when valid."""
     n = wn.shape[0]
     if n == 0:
-        return _scalar(BIG, wn.device)
+        return scalar(BIG, wn.device)
     idx = positions(n, wn.device)
     in_r = idx < length
     is_high = ((wn & 0xFC00) == 0xD800) & in_r
@@ -96,15 +96,6 @@ def census(w: torch.Tensor, length: int, big_endian: bool):
     )
 
 
-def _bytes_out(by: torch.Tensor, count: int, n: int) -> torch.Tensor:
-    """int32 byte values -> uint8[3n]: zero at/after ``count``."""
-    idx = positions(by.shape[0], by.device)
-    by = torch.where(idx < count, by & 0xFF, torch.zeros_like(by))
-    out = torch.zeros(3 * n, dtype=torch.uint8, device=by.device)
-    out[: by.shape[0]] = by.to(torch.uint8)
-    return out
-
-
 def _u8_fast_branches(w: torch.Tensor, length: int, n: int, big_endian: bool):
     """The fixed-rate utf16->utf8 branches (ascii, u2r, astral; the
     uniform-3 class takes the general engine, as in the JAX package); each
@@ -113,12 +104,12 @@ def _u8_fast_branches(w: torch.Tensor, length: int, n: int, big_endian: bool):
     Pallas kernel here either."""
 
     def br_ascii():
-        return _bytes_out(_native16(w, big_endian), length, n), length
+        return bytes_out(_native16(w, big_endian), length, 3 * n), length
 
     def br_u2r():
         x = _native16(w, big_endian)
         by = torch.stack([(x >> 6) | 0xC0, (x & 0x3F) | 0x80], dim=1)
-        return _bytes_out(by.reshape(-1), 2 * length, n), 2 * length
+        return bytes_out(by.reshape(-1), 2 * length, 3 * n), 2 * length
 
     def br_astral():
         pr = _native16(w[: n // 2 * 2], big_endian).view(-1, 2)
@@ -127,7 +118,7 @@ def _u8_fast_branches(w: torch.Tensor, length: int, n: int, big_endian: bool):
         by = torch.stack([0xF0 | (hb >> 8), 0x80 | ((hb >> 2) & 0x3F),
                           0x80 | ((hb & 0x03) << 4) | ((lo >> 6) & 0x0F),
                           0x80 | (lo & 0x3F)], dim=1)
-        return _bytes_out(by.reshape(-1), 2 * length, n), 2 * length
+        return bytes_out(by.reshape(-1), 2 * length, 3 * n), 2 * length
 
     return br_ascii, br_u2r, br_astral
 
@@ -154,7 +145,7 @@ def _utf8_general_parts(w: torch.Tensor, length: int, big_endian: bool):
     e3 = in_r & (x >= 0x800) & ~hi & ~lo
     width = in_r.to(torch.int64) + (in_r & ~e1).to(torch.int64) + e3.to(torch.int64)
     off, inc = excl_scan(width)
-    total = inc[n - 1] if n else _scalar(0, dev)
+    total = inc[n - 1] if n else scalar(0, dev)
 
     hb = x - 0xD7C0  # cp >> 10 at a high surrogate
     hb_prev = shift_right(x, 1) - 0xD7C0
@@ -171,10 +162,7 @@ def _utf8_general_parts(w: torch.Tensor, length: int, big_endian: bool):
     b2 = 0x80 | (x & 0x3F)
     out = scatter_writes(3 * n, [(in_r, off, b0), (in_r & ~e1, off + 1, b1),
                                  (e3, off + 2, b2)], dev)
-    # off[0] == 0 for an exclusive scan, so err_pos == 0 needs no case
-    err_len = torch.where(ok, _scalar(0, dev),
-                          off[torch.clamp(err_pos, max=max(n - 1, 0))]
-                          if n else _scalar(0, dev))
+    err_len = count_before(off, err_pos)
     out_len = torch.where(ok, total, err_len)
     out = torch.where(positions(3 * n, dev) < out_len, out & 0xFF,
                       torch.zeros_like(out))
@@ -188,7 +176,7 @@ def _general_utf8(w: torch.Tensor, length: int, big_endian: bool):
     out, total, err_any, err_pos, err_code, err_len = kc8.to_utf8_compose(
         w, length, big_endian)
     return (torch.where(err_any, err_code, torch.zeros_like(err_code)),
-            torch.where(err_any, err_pos, _scalar(length, w.device)),
+            torch.where(err_any, err_pos, scalar(length, w.device)),
             out,
             torch.where(err_any, err_len, total))
 
@@ -210,7 +198,7 @@ def to_utf8(w: torch.Tensor, length: int, big_endian: bool):
     def wrap(br):
         def f():
             out, cnt = br()
-            return _scalar(0, dev), _scalar(length, dev), out, _scalar(cnt, dev)
+            return scalar(0, dev), scalar(length, dev), out, scalar(cnt, dev)
         return f
 
     return route(
@@ -230,7 +218,7 @@ def to_utf8_valid(w: torch.Tensor, length: int, big_endian: bool):
     def wrap(br):
         def f():
             out, cnt = br()
-            return out, _scalar(cnt, dev)
+            return out, scalar(cnt, dev)
         return f
 
     return route(

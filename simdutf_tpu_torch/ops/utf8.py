@@ -1,5 +1,5 @@
-"""UTF-8 ops on torch tensors (port of the main path of
-simdutf_tpu/ops/utf8.py).
+"""UTF-8 ops on torch tensors (port of the UTF-16 and UTF-32 transcodes,
+validation and counts of simdutf_tpu/ops/utf8.py).
 
 Every function takes a padded 1-D ``torch.uint8`` buffer and the logical
 ``length`` (an int); bytes at/after ``length`` are ignored. Results stay on
@@ -13,17 +13,20 @@ from __future__ import annotations
 
 import torch
 
-from simdutf_tpu.errors import error_code as ec
+from ..errors import error_code as ec
 
 from ..kernels import census as kcen
 from ..kernels import compose16 as kc16
+from ..kernels import compose32 as kc32
 from ..kernels import validate as kv
 from .common import (
     BIG,
     bswap16,
+    count_before,
     excl_scan,
     positions,
     route,
+    scalar,
     scatter_writes,
     shift_left,
     shift_right,
@@ -38,9 +41,6 @@ _TOO_LARGE = int(ec.TOO_LARGE)
 _SURROGATE = int(ec.SURROGATE)
 _HEADER_BITS = int(ec.HEADER_BITS)
 
-
-def _scalar(x: int, device) -> torch.Tensor:
-    return torch.full((), x, dtype=torch.int64, device=device)
 
 
 def classify(b_u8: torch.Tensor, length: int) -> dict:
@@ -106,23 +106,23 @@ def _first_error_from(cls: dict, length: int):
 
     # (1) invalid lead sequences, at the lead
     bad = torch.where(lead & (err != 0), idx, big)
-    pos1 = bad.min() if n else _scalar(BIG, dev)
-    code1 = err[bad.argmin()].to(torch.int64) if n else _scalar(0, dev)
+    pos1 = bad.min() if n else scalar(BIG, dev)
+    code1 = err[bad.argmin()].to(torch.int64) if n else scalar(0, dev)
     # (2) continuation left over after a valid sequence: TOO_LONG there
     seqlen = cls["seqlen"]
     c4 = shift_left(cls["is_cont"], 4)
     gap = (((seqlen == 1) & cls["c1"]) | ((seqlen == 2) & cls["c2"])
            | ((seqlen == 3) & cls["c3"]) | ((seqlen == 4) & c4))
     good = lead & (err == 0)
-    pos2 = torch.where(good & gap, idx + seqlen, big).min() if n else _scalar(BIG, dev)
+    pos2 = torch.where(good & gap, idx + seqlen, big).min() if n else scalar(BIG, dev)
     # (3) the buffer starts with a continuation byte
-    pos3 = _scalar(BIG, dev)
+    pos3 = scalar(BIG, dev)
     if n and length > 0:
-        pos3 = torch.where(cls["is_cont"][0], _scalar(0, dev), pos3)
+        pos3 = torch.where(cls["is_cont"][0], scalar(0, dev), pos3)
 
     err_pos = torch.minimum(torch.minimum(pos1, pos2), pos3)
-    err_code = torch.where(err_pos == pos1, code1, _scalar(_TOO_LONG, dev))
-    err_code = torch.where(err_pos == BIG, _scalar(0, dev), err_code)
+    err_code = torch.where(err_pos == pos1, code1, scalar(_TOO_LONG, dev))
+    err_code = torch.where(err_pos == BIG, scalar(0, dev), err_code)
     return err_pos, err_code
 
 
@@ -232,7 +232,7 @@ def _emit_utf16_units(cp, lead, lead4, n: int, big_endian: bool):
     keep = lead | after_lead4
     val = torch.where(after_lead4, shift_right(unit1, 1), unit0)
     off, inc = excl_scan(keep.to(torch.int64))
-    total = inc[n - 1] if n else _scalar(0, cp.device)
+    total = inc[n - 1] if n else scalar(0, cp.device)
     out = scatter_writes(n, [(keep, off, val)], cp.device)
     return out, off, total
 
@@ -251,10 +251,7 @@ def _utf16_general_parts(b: torch.Tensor, length: int, big_endian: bool):
     out, off, total = _emit_utf16_units(cls["cp"], lead, cls["lead4"], n,
                                         big_endian)
     ok = err_pos == BIG
-    # off[0] == 0 for an exclusive scan, so err_pos == 0 needs no case
-    err_len = torch.where(ok, _scalar(0, b.device),
-                          off[torch.clamp(err_pos, max=max(n - 1, 0))]
-                          if n else _scalar(0, b.device))
+    err_len = count_before(off, err_pos)
     out_len = torch.where(ok, total, err_len)
     out = torch.where(idx < out_len, out, torch.zeros_like(out))
     return err_pos, err_code, out, total, err_len
@@ -268,7 +265,7 @@ def _general_utf16(b: torch.Tensor, length: int, big_endian: bool):
         b, length, big_endian)
     zero = torch.zeros_like(err_code)
     return (torch.where(err_any, err_code, zero),
-            torch.where(err_any, err_pos, _scalar(length, b.device)),
+            torch.where(err_any, err_pos, scalar(length, b.device)),
             out,
             torch.where(err_any, err_len, total))
 
@@ -292,8 +289,8 @@ def to_utf16(b: torch.Tensor, length: int, big_endian: bool):
     def wrap(br):
         def f():
             out, cnt = br()
-            return (_scalar(0, dev), _scalar(length, dev), to_u16(out),
-                    _scalar(cnt, dev))
+            return (scalar(0, dev), scalar(length, dev), to_u16(out),
+                    scalar(cnt, dev))
         return f
 
     return route(
@@ -313,7 +310,7 @@ def to_utf16_valid(b: torch.Tensor, length: int, big_endian: bool):
     def wrap(br):
         def f():
             out, cnt = br()
-            return to_u16(out), _scalar(cnt, dev)
+            return to_u16(out), scalar(cnt, dev)
         return f
 
     def general():
@@ -323,3 +320,93 @@ def to_utf16_valid(b: torch.Tensor, length: int, big_endian: bool):
         [(p, wrap(br)) for p, br in zip((ascii_, u2, u3, u4), fast)],
         general,
     )
+
+
+def _u32_fast_branches(b: torch.Tensor, length: int, n: int):
+    """The four fixed-rate utf8->utf32 branches; each returns (out
+    int32[n] of code points, out_len) bit-identical to the general engine
+    on its class (simdutf_tpu/ops/utf8._u32_fast_branches). The ascii,
+    2- and 3-byte classes are the UTF-16 branches' little-endian units;
+    the 4-byte class decodes whole code points. Plain torch on every
+    device: the JAX package has no Pallas kernel here either."""
+    br_ascii, br_u2, br_u3, _ = _u16_fast_branches(b, length, n, False)
+
+    def br_u4():
+        q = b[: n // 4 * 4].to(torch.int32).view(-1, 4)
+        cp = (((q[:, 0] & 0x07) << 18) | ((q[:, 1] & 0x3F) << 12)
+              | ((q[:, 2] & 0x3F) << 6) | (q[:, 3] & 0x3F))
+        cnt = length // 4
+        return _pad_to(_mask_units(cp, cnt), n), cnt
+
+    return br_ascii, br_u2, br_u3, br_u4
+
+
+def _utf32_general_parts(b: torch.Tensor, length: int):
+    """The plain mixed-script engine, classify -> scan -> scatter (the JAX
+    package's ``_to_utf32_general``), and the compose32 kernel's plain
+    version. Every in-range lead writes its mechanically decoded code
+    point, valid or not, and nothing is zeroed past the valid prefix.
+    Returns (err_pos, err_code, out int32[n], total, err_len): err_pos ==
+    BIG when valid, total counts every lead, err_len the leads before
+    err_pos."""
+    n = b.shape[0]
+    dev = b.device
+    cls = classify(b, length)
+    err_pos, err_code = _first_error_from(cls, length)
+    lead = cls["lead"] & (positions(n, dev) < length)
+    off, inc = excl_scan(lead.to(torch.int64))
+    total = inc[n - 1] if n else scalar(0, dev)
+    out = scatter_writes(n, [(lead, off, cls["cp"])], dev)
+    err_len = count_before(off, err_pos)
+    return err_pos, err_code, out, total, err_len
+
+
+def to_utf32(b: torch.Tensor, length: int):
+    """Validating UTF-8 -> UTF-32, routed on the one-pass census like
+    :func:`to_utf16`: whole-buffer ASCII / uniform 2-, 3-, 4-byte input
+    takes a fixed-rate branch; all other input takes the compose kernel
+    (kernels/compose32).
+
+    Returns (err_code, err_pos, out int32[N] of uint32 code points,
+    out_len); on error out_len counts the words of the valid prefix, and
+    the code points of every later in-range lead stay in ``out`` past it,
+    as in the JAX package."""
+    n = b.shape[0]
+    dev = b.device
+    ascii_, u2, u3, u4, _, _ = census_full(b, length)
+    fast = _u32_fast_branches(b, length, n)
+
+    def wrap(br):
+        def f():
+            out, cnt = br()
+            return scalar(0, dev), scalar(length, dev), out, scalar(cnt, dev)
+        return f
+
+    def general():
+        out, total, err_any, err_pos, err_code, err_len = kc32.to_utf32_compose(
+            b, length)
+        return (torch.where(err_any, err_code, torch.zeros_like(err_code)),
+                torch.where(err_any, err_pos, scalar(length, dev)),
+                out,
+                torch.where(err_any, err_len, total))
+
+    return route([(p, wrap(br)) for p, br in zip((ascii_, u2, u3, u4), fast)],
+                 general)
+
+
+def to_utf32_valid(b: torch.Tensor, length: int):
+    """convert_valid_utf8_to_utf32: assumes valid input. Returns
+    (out int32[N], out_len), census-routed like :func:`to_utf32`."""
+    n = b.shape[0]
+    dev = b.device
+    ascii_, u2, u3, u4, _, _ = census_full(b, length)
+    fast = _u32_fast_branches(b, length, n)
+
+    def wrap(br):
+        def f():
+            out, cnt = br()
+            return out, scalar(cnt, dev)
+        return f
+
+    return route([(p, wrap(br)) for p, br in zip((ascii_, u2, u3, u4), fast)],
+                 lambda: kc32.to_utf32_compose(b, length)[:2])

@@ -5,7 +5,7 @@ Same padded buffer (the JAX package's bucket), same length and options
 into both: the six outputs of ``decode_bulk`` and ``decode_bulk_routed``
 (the full ``packed`` buffer included), ``encode_bulk`` byte for byte, the
 char classification, and the host helpers ``b64_strip``,
-``b64_tail_epilogue`` and ``b64_finish`` of simdutf_tpu_torch.impl
+``b64_tail_epilogue`` and ``b64_finish`` of simdutf_tpu_torch.base64_host
 against those of simdutf_tpu.ops.impl. Integer results: exact.
 """
 
@@ -21,6 +21,7 @@ import torch
 import simdutf_tpu.ops.base64_ops as job
 import simdutf_tpu.ops.impl as jimpl
 from simdutf_tpu.golden import base64_impl as gb
+from simdutf_tpu_torch import base64_host as bh
 from simdutf_tpu_torch import impl
 from simdutf_tpu_torch.ops import base64_ops as tob
 
@@ -119,7 +120,7 @@ def test_b64_strip_matches_jax(garbage, wide):
         for s in STRIP:
             src = np.frombuffer(s, np.uint8)
             src = src.astype(np.uint16) if wide else src
-            assert impl.b64_strip(src, tab, garbage) == jimpl.b64_strip(src, tab, garbage), s
+            assert bh.b64_strip(src, tab, garbage) == jimpl.b64_strip(src, tab, garbage), s
 
 
 def test_b64_tail_epilogue_matches_jax():
@@ -129,7 +130,7 @@ def test_b64_tail_epilogue_matches_jax():
             (gb.LOOSE, gb.STRICT, gb.STOP_BEFORE_PARTIAL)):
         for tail in (tails[idx], [63] * idx):
             args = (outlen, idx, tail, 40, 44, pad, 44 - pad, garbage, chunk)
-            got, want = impl.b64_tail_epilogue(*args), jimpl.b64_tail_epilogue(*args)
+            got, want = bh.b64_tail_epilogue(*args), jimpl.b64_tail_epilogue(*args)
             assert got[0] == want[0] and np.array_equal(got[1], want[1]), args
 
 
@@ -145,5 +146,5 @@ def test_b64_finish_matches_jax():
                 (40, 0, 44, 37, 36), (40, 2, 2**31 - 1, 37, 36)):
             args = (srclen, pad, srclen + 1 - pad, garbage, chunk, first_bad,
                     nvalid, nab, packed, tail_vals, 36)
-            got, want = impl.b64_finish(*args), jimpl.b64_finish(*args)
+            got, want = bh.b64_finish(*args), jimpl.b64_finish(*args)
             assert got[0] == want[0] and np.array_equal(got[1], want[1]), args

@@ -19,6 +19,8 @@ from simdutf_tpu_torch.kernels import census as kcen
 from simdutf_tpu_torch.kernels import compact64 as kc64
 from simdutf_tpu_torch.kernels import compose8 as kc8
 from simdutf_tpu_torch.kernels import compose16 as kc
+from simdutf_tpu_torch.kernels import compose32 as kc32
+from simdutf_tpu_torch.kernels import composex as kcx
 from simdutf_tpu_torch.kernels import utf16_kernels as k16
 from simdutf_tpu_torch.kernels import validate as kv
 from simdutf_tpu_torch.ops import base64_ops as ob
@@ -205,4 +207,79 @@ def test_base64_compact_on_unaligned_u16_view(cuda):
     got = kc64.compact_codes(x, L, False, False)
     assert _same(got, kc64.compact_codes_ref(x, L, False, False))
     assert int(got[2]) == 4999
+    torch.cuda.synchronize()
+
+
+def _inputs32():
+    """(name, words) for the UTF-32 kernels: each class, words above
+    0x10FFFF and surrogates at 0, at the 2048-word tile edges and at the
+    end, words with the top bit set."""
+    rng = np.random.default_rng(4)
+    alphabet = ["a", "é", "東", "\U0001f642", " ", "\U0010ffff"]
+    text = "".join(alphabet[i] for i in rng.integers(0, 6, 20_000))
+    mixed = np.frombuffer(text.encode("utf-32-le"), np.uint32)
+    out = [("mixed", mixed), ("astral", np.full(5000, 0x1F642, np.uint32)),
+           ("empty", np.zeros(0, np.uint32))]
+    for pos, word in ((0, 0x110000), (2047, 0xD800), (2048, 0xDFFF),
+                      (4097, 0x80000000), (len(mixed) - 1, 0xFFFFFFFF)):
+        d = mixed.copy()
+        d[pos] = word
+        out.append((f"{word:x}@{pos}", d))
+    return out
+
+
+@pytest.mark.parametrize("name,words", _inputs32())
+def test_utf32_kernels_match_plain_versions(cuda, name, words):
+    L = len(words)
+    n = L + 13  # words past the length are garbage
+    buf = np.random.default_rng(n).integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    buf[:L] = words
+    w = torch.from_numpy(buf.view(np.int32)).to(cuda)
+    assert _same(kv.utf32_first_bad(w, L), kv.utf32_first_bad_ref(w, L))
+    for what in ("utf8len", "utf16len"):
+        assert _same(kv.utf32_count(w, L, what), kv.utf32_count_ref(w, L, what))
+    assert _same(kcx.u32_to_utf8_compose(w, L), kcx.u32_to_utf8_compose_ref(w, L))
+    # a view one word into its storage takes the word loads
+    if L > 1:
+        v = w[1:]
+        assert _same(kv.utf32_first_bad(v, L - 1), kv.utf32_first_bad_ref(v, L - 1))
+        assert _same(kcx.u32_to_utf8_compose(v, L - 1), kcx.u32_to_utf8_compose_ref(v, L - 1))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name,data", _inputs())
+def test_compose32_matches_plain_version(cuda, name, data):
+    n = len(data) + 13  # bytes past the length are garbage
+    buf = np.random.default_rng(n).integers(0, 256, n).astype(np.uint8)
+    buf[: len(data)] = np.frombuffer(data, np.uint8)
+    x, L = torch.from_numpy(buf).to(cuda), len(data)
+    assert _same(kc32.to_utf32_compose(x, L), kc32.to_utf32_compose_ref(x, L))
+    torch.cuda.synchronize()
+
+
+def test_compose_wrappers_make_no_host_sync(cuda):
+    """Count pass, tile_glue and emit pass of every compose and compaction
+    wrapper run without a device-to-host read."""
+    data = ("ab é 東 \U0001f642 " * 5000).encode()
+    x = torch.from_numpy(np.frombuffer(data + b"\xff", np.uint8).copy()).to(cuda)
+    text = data.decode()
+    w16 = torch.from_numpy(np.frombuffer(text.encode("utf-16-le"), np.int16).copy()
+                           ).to(cuda).view(torch.uint16)
+    w32 = torch.from_numpy(np.frombuffer(text.encode("utf-32-le"), np.int32).copy()).to(cuda)
+    b64 = pyb64.b64encode(data)
+    chars = torch.from_numpy(np.frombuffer(b64, np.uint8).copy()).to(cuda)
+    calls = [lambda: kc.to_utf16_compose(x, x.numel(), False),
+             lambda: kc8.to_utf8_compose(w16, w16.numel(), False),
+             lambda: kc32.to_utf32_compose(x, x.numel()),
+             lambda: kcx.u32_to_utf8_compose(w32, w32.numel()),
+             lambda: kc64.compact_codes(chars, chars.numel(), False, False)]
+    for call in calls:  # build and load the library first
+        call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()

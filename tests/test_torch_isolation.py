@@ -1,0 +1,108 @@
+"""The port stands alone: no file of it imports jax or the JAX package.
+
+Every ``.py`` under ``simdutf_tpu_torch/`` and ``chip_smoke.py`` is parsed
+with ``ast``, and any import of a ``jax*`` module or of ``simdutf_tpu`` (at
+any depth of the file) fails. Then, in a fresh process, every public
+function of ``simdutf_tpu_torch.api`` runs on ``"cpu"``, and no module of
+those names may be loaded afterwards.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+import simdutf_tpu_torch
+from simdutf_tpu_torch import api
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("simdutf_tpu",)  # and every module whose name starts with jax
+SOURCES = sorted((ROOT / "simdutf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path: Path):
+    """(line, absolute module name) of every import in ``path``."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+            for alias in node.names:
+                yield node.lineno, f"{node.module}.{alias.name}"
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_import_of_jax_or_the_jax_package(path):
+    bad = [(line, mod) for line, mod in _imports(path)
+           if mod.split(".")[0].startswith("jax") or mod.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_implementation_has_no_base_class_from_the_jax_package():
+    bases = simdutf_tpu_torch.TorchImplementation.__mro__[1:]
+    assert bases == (object,)
+
+
+def _public_functions():
+    return sorted(name for name, obj in vars(api).items()
+                  if callable(obj) and not name.startswith("_")
+                  and getattr(obj, "__module__", None) == api.__name__
+                  and not isinstance(obj, type))
+
+
+_DRIVER = r'''
+import sys
+import numpy as np
+from simdutf_tpu_torch import api
+
+api.use_device("cpu")
+text = "a é 東 \U0001f642 " * 50
+inputs = {"utf8": text.encode(), "utf16le": text.encode("utf-16-le"),
+          "utf16be": text.encode("utf-16-be"), "utf16": text.encode("utf-16-le"),
+          "utf32": text.encode("utf-32-le"), "latin1": text.encode()}
+
+def source(name):
+    if name.startswith("convert_"):
+        return name.split("_to_")[0].split("_")[-1]
+    if "_from_" in name:
+        return name.split("_from_")[1]
+    return name.split("_")[1]
+
+called = []
+for name in NAMES:
+    fn = getattr(api, name)
+    if name in ("use_device", "get_implementation"):
+        fn("cpu") if name == "use_device" else fn()
+    elif name == "base64_length_from_binary":
+        assert fn(10) == 16
+    elif "base64" in name:
+        b64 = __import__("base64").b64encode(inputs["utf8"])
+        arg = inputs["utf8"] if name.startswith("binary_to") else b64
+        fn(arg)
+    elif name.endswith("_into"):
+        assert fn(inputs[source(name)], np.zeros(1 << 16, np.uint32)) > 0
+    else:
+        fn(inputs[source(name)])
+    called.append(name)
+assert called == NAMES
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0].startswith("jax") or m.split(".")[0] == "simdutf_tpu")
+assert not bad, bad
+print(len(called))
+'''
+
+
+def test_every_api_function_runs_without_jax_or_the_jax_package():
+    names = _public_functions()
+    assert len(names) > 50
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", f"NAMES = {names!r}\n" + _DRIVER],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split()[-1] == str(len(names))

@@ -106,12 +106,13 @@ def test_cuda_tier_refuses_without_a_card():
 
 
 def test_port_runs_without_jax():
-    """Import the port and run its slice on CPU in a fresh process: jax
-    must never be loaded."""
+    """Import the port and run its slices through its own api on CPU in a
+    fresh process: neither jax nor the JAX package may be loaded
+    (tests/test_torch_isolation.py runs every api function so)."""
     code = (
         "import sys\n"
-        "import simdutf_tpu as su, simdutf_tpu_torch\n"
-        "simdutf_tpu_torch.activate('cpu')\n"
+        "from simdutf_tpu_torch import api as su\n"
+        "su.use_device('cpu')\n"
         "d = 'a é 東 \\U0001f642'.encode() * 100\n"
         "res, out = su.convert_utf8_to_utf16le_with_errors(d)\n"
         "assert res.is_ok and out == d.decode().encode('utf-16-le')\n"
@@ -128,12 +129,15 @@ def test_port_runs_without_jax():
         "    assert getattr(su, f'validate_utf16{end}_with_errors')(bad).count == 10\n"
         "    assert getattr(su, f'count_utf16{end}')(w) == len(d.decode())\n"
         "    assert getattr(su, f'utf8_length_from_utf16{end}')(w) == len(d)\n"
+        "w32 = d.decode().encode('utf-32-le')\n"
+        "assert su.convert_utf8_to_utf32(d) == w32 and su.convert_utf32_to_utf8(w32) == d\n"
         "import base64\n"
         "b = base64.b64encode(d)\n"
         "assert su.binary_to_base64(d) == b\n"
         "assert su.base64_to_binary(b[:40] + b'\\r\\n' + b[40:]) == (su.Result(su.error_code.SUCCESS, len(d)), d)\n"
         "assert su.base64_to_binary(b[:40] + b'*' + b[40:])[0].count == 40\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'simdutf_tpu')]\n"
+        "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
