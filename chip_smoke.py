@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
-Four paths, each driven through the port's own api
+Five paths, each driven through the port's own api
 (``simdutf_tpu_torch.api`` on "cuda"): UTF-8 -> UTF-16LE/BE with UTF-8
 validation and counts, UTF-16LE/BE -> UTF-8 with UTF-16 validation and
-counts, forgiving base64 decode and encode, and UTF-8 <-> UTF-32 with
-UTF-32 validation and lengths. Nothing of the JAX package or of jax is
-imported. Phases, each fatal on failure:
+counts, forgiving base64 decode and encode, UTF-8 <-> UTF-32 with UTF-32
+validation and lengths, and the rest of the transcode matrix (UTF-16LE/BE
+<-> UTF-32, Latin-1 <-> UTF-8/16/32). Nothing of the JAX package or of
+jax is imported. Every path runs at its full depth: the whole run takes a
+few minutes of the 20-minute limit. Phases, each fatal on failure:
   1. device  - name, compute capability (must be 9.0), nvidia-smi power limit;
   2. build   - nvcc builds csrc/*.cu (one process per source) into one library;
   3. parity  - every Hopper kernel against its plain torch version on the
@@ -42,6 +44,16 @@ imported. Phases, each fatal on failure:
                without an error; compose32 on the UTF-8 parity inputs; then
                the api on the 64 MiB corpus and on its UTF-32LE form
                against codecs ``utf-32-le``;
+     parityx and slicex do the same for the butterflyx kernels of the
+               last directions: UTF-16 -> UTF-32 on the UTF-16 parity
+               inputs and UTF-32 -> UTF-16 on the UTF-32 ones (LE and BE),
+               Latin-1 -> UTF-8 on every byte value, high bytes at the tile
+               edges and a 64 MiB Latin-1 buffer (70% 0x20-0x7E, 30%
+               0xC0-0xFF, from the seed); then the api on the corpus as
+               UTF-16LE/BE and UTF-32LE, on the Latin-1 buffer and on its
+               UTF-8/16/32 encodings, against CPython's codecs, with a lone
+               surrogate, a 0x110000 word and a 3-byte character injected
+               at known positions;
   5. times   - device-resident kernels and the routed calls against their
                plain versions, with CUDA events, the device-to-device copy
                rate, and a torch.profiler breakdown of each routed call.
@@ -75,6 +87,8 @@ PASSES16 = ("census_utf16", "utf16_first_bad", "utf16_count",
 PASSES64 = ("b64_compact", "b64_pack", "b64_encode")
 PASSES32 = ("utf32_first_bad", "utf32_count", "utf8_to_utf32_compose",
             "utf32_to_utf8_compose")
+PASSESX = ("utf16_to_utf32_compose", "utf32_to_utf16_compose",
+           "latin1_to_utf8_compose")
 KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
     "census_utf8": ("simdutf_tpu_torch/csrc/census.cu",
                     "simdutf_tpu/kernels/census.py:204", []),
@@ -114,6 +128,15 @@ KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
     "utf32_to_utf8_compose": ("simdutf_tpu_torch/csrc/composex.cu",
                               "simdutf_tpu/kernels/butterflyx.py:122",
                               ["simdutf_tpu/kernels/butterfly16.py:335"]),
+    "utf16_to_utf32_compose": ("simdutf_tpu_torch/csrc/composex16.cu",
+                               "simdutf_tpu/kernels/butterflyx.py:122",
+                               ["simdutf_tpu/kernels/butterfly32.py:267"]),
+    "utf32_to_utf16_compose": ("simdutf_tpu_torch/csrc/composex.cu",
+                               "simdutf_tpu/kernels/butterflyx.py:122",
+                               ["simdutf_tpu/kernels/butterflyx.py:318"]),
+    "latin1_to_utf8_compose": ("simdutf_tpu_torch/csrc/composex.cu",
+                               "simdutf_tpu/kernels/butterflyx.py:122",
+                               ["simdutf_tpu/kernels/butterfly16.py:335"]),
 }
 #: HBM rate of one H100 SXM (NVIDIA's data sheet, at the 700 W limit): the
 #: bound of these kernels, which all stream their bytes
@@ -450,6 +473,37 @@ def parity_phase(device, big: int = CORPUS_BYTES) -> dict:
     return errs
 
 
+def _units_buffer(name: str, units, n: int, garbage: bool):
+    """The n-unit native buffer of a parity16 case: the units, garbage or
+    zeros past them, and for ``hi@len-1`` the pair's low half stored at the
+    length."""
+    import numpy as np
+
+    L = len(units)
+    buf = np.zeros(n, np.uint16)
+    if garbage:
+        buf[:] = np.random.default_rng(L).integers(0, 1 << 16, n)
+    buf[:L] = units
+    if name == "hi@len-1":
+        buf[L] = _u16("\U0001f642")[1]
+    return buf
+
+
+def _words_buffer(name: str, words, n: int, garbage: bool):
+    """The n-word buffer of a parity32 case: the words, garbage or zeros
+    past them, and for ``bad@len`` a surrogate stored at the length."""
+    import numpy as np
+
+    L = len(words)
+    buf = np.zeros(n, np.uint32)
+    if garbage:
+        buf[:] = np.random.default_rng(L).integers(0, 1 << 32, n, dtype=np.uint64)
+    buf[:L] = words
+    if name == "bad@len":
+        buf[L] = 0xD800
+    return buf
+
+
 def parity16_phase(device, big: int = CORPUS_BYTES) -> dict:
     """Each UTF-16 kernel against its plain version on ``device``, LE and
     BE input; returns the largest error seen per kernel (all must be 0)."""
@@ -464,12 +518,7 @@ def parity16_phase(device, big: int = CORPUS_BYTES) -> dict:
     cases = parity16_cases(big)
     for name, units, n, garbage in cases:
         L = len(units)
-        buf = np.zeros(n, np.uint16)
-        if garbage:
-            buf[:] = np.random.default_rng(L).integers(0, 1 << 16, n)
-        buf[:L] = units
-        if name == "hi@len-1":
-            buf[L] = _u16("\U0001f642")[1]
+        buf = _units_buffer(name, units, n, garbage)
         for be in (False, True):
             stored = buf.byteswap() if be else buf
             w = torch.from_numpy(stored.view(np.int16)).to(device).view(torch.uint16)
@@ -829,12 +878,7 @@ def parity32_phase(device, big: int = CORPUS_BYTES) -> dict:
     cases = parity32_cases(big)
     for name, words, n, garbage in cases:
         L = len(words)
-        buf = np.zeros(n, np.uint32)
-        if garbage:
-            buf[:] = np.random.default_rng(L).integers(0, 1 << 32, n, dtype=np.uint64)
-        buf[:L] = words
-        if name == "bad@len":
-            buf[L] = 0xD800
+        buf = _words_buffer(name, words, n, garbage)
         w = torch.from_numpy(buf.view(np.int32)).to(device)
         what = f"{name} (n={n}, length={L})"
         record("utf32_first_bad", what, kv.utf32_first_bad(w, L),
@@ -943,6 +987,193 @@ def slice32_phase(device, big: int = CORPUS_BYTES) -> dict:
         check(res8.is_ok and out8 == d, f"{name}: utf32 -> utf8 differs")
     log(f"slice32: classes {[n for n, _ in inputs]} at {big // 4} B of UTF-8 "
         f"round-trip equal to codecs")
+    return launches
+
+
+def latin1_corpus(nbytes: int, seed: int = SEED) -> bytes:
+    """Latin-1 text made with numpy: 70% of bytes in 0x20-0x7E, 30% in
+    0xC0-0xFF (tools/gen_corpus.py's ``latin`` profile cut to Latin-1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    low = rng.random(nbytes, dtype=np.float32) < 0.7
+    return np.where(low, rng.integers(0x20, 0x7F, nbytes, dtype=np.uint8),
+                    rng.integers(0xC0, 0x100, nbytes, dtype=np.uint8)).tobytes()
+
+
+def latin1_cases(big: int):
+    """(name, Latin-1 bytes, buffer size, garbage past the length) for the
+    latin1_to_utf8_compose parity."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 1)
+    every = bytes(range(256))
+    cases = [("every-byte", every), ("every-byte-x40", every * 40), ("empty", b""),
+             ("ascii-100003", b"a" * 100_003), ("high-100003", b"\xe9" * 100_003)]
+    edges = bytearray(b"x" * 20_000)
+    for p in (0, 2047, 2048, 4095, 4096, 19_999):
+        edges[p] = 0xFF
+    cases.append(("high@edges", bytes(edges)))
+    for t in range(10):
+        cases.append((f"fuzz{t}", latin1_corpus(int(rng.integers(1, 50_000)), SEED + t)))
+    cases.append(("latin1-64MiB", latin1_corpus(big)))
+    return [(name, data, len(data) + (0, 8, 1000 + i)[i % 3], i % 3 == 2)
+            for i, (name, data) in enumerate(cases)]
+
+
+def parityx_phase(device, big: int = CORPUS_BYTES) -> dict:
+    """The three butterflyx compose kernels against their plain versions
+    on ``device``: UTF-16 -> UTF-32 on the UTF-16 parity inputs (LE and BE
+    input), UTF-32 -> UTF-16 on the UTF-32 parity inputs (LE and BE
+    output), Latin-1 -> UTF-8 on every byte value, high bytes at the tile
+    edges, random and the 64 MiB Latin-1 buffer; returns the largest error
+    seen per kernel (all must be 0)."""
+    import numpy as np
+    import torch
+
+    from simdutf_tpu_torch.kernels import composex as kcx
+
+    def record(k, what, kern, plain):
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        e = _max_err(kern, plain)
+        errs[k] = max(errs[k], e)
+        check(e == 0, f"parity {k} on {what}: max abs err {e}")
+
+    errs = dict.fromkeys(PASSESX, 0)
+    cases16 = parity16_cases(big)
+    for name, units, n, garbage in cases16:
+        L = len(units)
+        buf = _units_buffer(name, units, n, garbage)
+        for be in (False, True):
+            stored = buf.byteswap() if be else buf
+            w = torch.from_numpy(stored.view(np.int16)).to(device).view(torch.uint16)
+            record("utf16_to_utf32_compose", f"{name} (n={n}, length={L}, be={be})",
+                   kcx.u16_to_utf32_compose(w, L, be), kcx.u16_to_utf32_compose_ref(w, L, be))
+    cases32 = parity32_cases(big)
+    for name, words, n, garbage in cases32:
+        L = len(words)
+        w = torch.from_numpy(_words_buffer(name, words, n, garbage).view(np.int32)).to(device)
+        for be in (False, True):
+            record("utf32_to_utf16_compose", f"{name} (n={n}, length={L}, be={be})",
+                   kcx.u32_to_utf16_compose(w, L, be), kcx.u32_to_utf16_compose_ref(w, L, be))
+    cases8 = latin1_cases(big)
+    for name, data, n, garbage in cases8:
+        L = len(data)
+        buf = np.zeros(n, np.uint8)
+        if garbage:
+            buf[:] = np.random.default_rng(L).integers(0, 256, n)
+        buf[:L] = np.frombuffer(data, np.uint8)
+        b = torch.from_numpy(buf).to(device)
+        record("latin1_to_utf8_compose", f"{name} (n={n}, length={L})",
+               kcx.latin1_to_utf8_compose(b, L), kcx.latin1_to_utf8_compose_ref(b, L))
+    log(f"parityx: {len(cases16)} unit buffers and {len(cases32)} word buffers (LE and "
+        f"BE), {len(cases8)} Latin-1 buffers, every butterflyx kernel bit-identical "
+        f"to its plain version")
+    return errs
+
+
+def slicex_phase(device, big: int = CORPUS_BYTES) -> dict:
+    """The port's UTF-16 <-> UTF-32 and Latin-1 api on ``device``: the
+    64 MiB corpus as UTF-16LE/BE -> UTF-32, its UTF-32LE form -> UTF-16LE/BE,
+    a 64 MiB Latin-1 buffer -> UTF-8/16/32 and its encodings -> Latin-1,
+    against CPython's codecs; returns the launch count of each butterflyx
+    kernel during the main-path calls."""
+    import numpy as np
+
+    import bench
+
+    from simdutf_tpu_torch import api as su
+    from simdutf_tpu_torch.errors import error_code as ec
+    from simdutf_tpu_torch.kernels import _build
+
+    su.use_device(device)
+    text = bench.mixed_corpus(big).decode("utf-8")
+    le, be, w32 = text.encode("utf-16-le"), text.encode("utf-16-be"), text.encode("utf-32-le")
+    lat = latin1_corpus(big)
+    ltext = lat.decode("latin-1")
+    l8, l16, l32 = ltext.encode(), ltext.encode("utf-16-le"), ltext.encode("utf-32-le")
+
+    _build.reset_launches()
+    res32, out32 = su.convert_utf16le_to_utf32_with_errors(le)
+    res16, out16 = su.convert_utf32_to_utf16le_with_errors(w32)
+    out8 = su.convert_latin1_to_utf8(lat)
+    launches = dict(_build.LAUNCHES)
+
+    check(res32.is_ok and res32.count == len(w32) // 4 and out32 == w32,
+          f"utf16le -> utf32 {res32} differs from codecs")
+    check(res16.is_ok and res16.count == len(le) // 2 and out16 == le,
+          f"utf32 -> utf16le {res16} differs from codecs")
+    check(out8 == l8, "latin1 -> utf8 differs from codecs")
+    for k in PASSESX:
+        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the main path")
+    log(f"slicex: {len(le) // 2} units -> {len(w32) // 4} words -> {len(le) // 2} "
+        f"units, {len(lat)} Latin-1 B -> {len(l8)} B, equal to codecs; "
+        f"launches {launches}")
+
+    check(su.convert_utf16be_to_utf32_with_errors(be) == (res32, w32)
+          and su.convert_utf16be_to_utf32(be) == w32
+          and su.convert_valid_utf16le_to_utf32(le) == w32
+          and su.convert_valid_utf16be_to_utf32(be) == w32,
+          "utf16be / valid utf16 -> utf32 differ from codecs")
+    check(su.convert_utf32_to_utf16be_with_errors(w32)[1] == be
+          and su.convert_utf32_to_utf16be(w32) == be
+          and su.convert_valid_utf32_to_utf16le(w32) == le
+          and su.convert_valid_utf32_to_utf16be(w32) == be,
+          "utf32 -> utf16be / valid utf32 -> utf16 differ from codecs")
+    check(su.convert_latin1_to_utf16le(lat) == l16
+          and su.convert_latin1_to_utf16be(lat) == ltext.encode("utf-16-be")
+          and su.convert_latin1_to_utf32(lat) == l32,
+          "latin1 -> utf16 / utf32 differ from codecs")
+    for name, data in (("utf8", l8), ("utf16le", l16), ("utf32", l32)):
+        res, out = getattr(su, f"convert_{name}_to_latin1_with_errors")(data)
+        check(res.is_ok and res.count == len(lat) and out == lat,
+              f"{name} -> latin1 {res} differs from the Latin-1 bytes")
+        check(getattr(su, f"convert_valid_{name}_to_latin1")(data) == lat,
+              f"valid {name} -> latin1 differs")
+    check(su.convert_utf16be_to_latin1(ltext.encode("utf-16-be")) == lat,
+          "utf16be -> latin1 differs")
+    log("slicex: BE, valid-only and every Latin-1 direction at full width equal codecs")
+
+    # errors at known positions: their code there, and the valid prefix
+    units = np.frombuffer(le, np.uint16).copy()
+    k = len(units) * 3 // 5
+    while (units[k - 1] & 0xFC00) == 0xD800:
+        k += 1
+    units[k] = 0xDC00
+    res, out = su.convert_utf16le_to_utf32_with_errors(units.tobytes())
+    check((res.error, res.count) == (ec.SURROGATE, k)
+          and out == units[:k].tobytes().decode("utf-16-le").encode("utf-32-le"),
+          f"lone surrogate at {k}: port {res}")
+    res_be, out_be = su.convert_utf16be_to_utf32_with_errors(units.byteswap().tobytes())
+    check((res_be.error, res_be.count, out_be) == (res.error, res.count, out),
+          "big-endian lone surrogate differs from little-endian")
+    words = np.frombuffer(w32, np.uint32).copy()
+    kw = len(words) * 3 // 5
+    words[kw] = 0x110000
+    res, out = su.convert_utf32_to_utf16le_with_errors(words)
+    check((res.error, res.count) == (ec.TOO_LARGE, kw)
+          and out == text[:kw].encode("utf-16-le"), f"0x110000 at {kw}: port {res}")
+    kl = len(lat) * 3 // 5
+    k8 = len(ltext[:kl].encode())
+    bad8 = l8[:k8] + "東".encode() + l8[k8:]
+    res, out = su.convert_utf8_to_latin1_with_errors(bad8)
+    check((res.error, res.count) == (ec.TOO_LARGE, k8) and out == lat[:kl],
+          f"3-byte char at byte {k8}: port {res}")
+    log(f"slicex: lone surrogate at unit {k} (LE and BE), 0x110000 at word {kw} and a "
+        f"3-byte char at byte {k8} reported there; partial outputs = valid prefixes")
+
+    inputs = [("ascii", b"a" * (big // 4)), ("all-high", b"\xe9" * (big // 4))]
+    for name, d in inputs:
+        want = d.decode("latin-1").encode()
+        check(su.convert_latin1_to_utf8(d) == want, f"{name}: latin1 -> utf8 differs")
+        check(su.convert_utf8_to_latin1(want) == d, f"{name}: utf8 -> latin1 differs")
+    for name, ch in (("bmp", "東"), ("astral", "🙂")):
+        t = ch * (big // 16)
+        w16, ww = t.encode("utf-16-le"), t.encode("utf-32-le")
+        check(su.convert_utf16le_to_utf32(w16) == ww, f"{name}: utf16 -> utf32 differs")
+        check(su.convert_utf32_to_utf16le(ww) == w16, f"{name}: utf32 -> utf16 differs")
+    log("slicex: Latin-1 ASCII and all-high, BMP and astral classes equal codecs")
     return launches
 
 
@@ -1171,6 +1402,73 @@ def times32_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict]:
     return ms, moved
 
 
+def timesx_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict]:
+    """ms of each butterflyx kernel of this slice and of its plain version
+    at the paths' shapes (the corpus's UTF-16LE units and UTF-32LE words,
+    the 64 MiB Latin-1 buffer, device-resident), of the three routed
+    calls, with a torch.profiler breakdown of each."""
+    import numpy as np
+    import torch
+
+    import bench
+    from simdutf_tpu_torch import impl
+    from simdutf_tpu_torch.kernels import census as kcen
+    from simdutf_tpu_torch.kernels import composex as kcx
+    from simdutf_tpu_torch.kernels import validate as kv
+    from simdutf_tpu_torch.ops import latin1 as ol1
+    from simdutf_tpu_torch.ops import utf16 as o16
+    from simdutf_tpu_torch.ops import utf32 as o32
+
+    text = bench.mixed_corpus(big).decode("utf-8")
+    w16, U = impl.to_device(*impl._pad(np.frombuffer(text.encode("utf-16-le"), np.uint16)),
+                            "cuda")
+    w32, W = impl.to_device(*impl._pad(np.frombuffer(text.encode("utf-32-le"), np.uint32)),
+                            "cuda")
+    lat, B = impl.to_device(*impl._pad(np.frombuffer(latin1_corpus(big), np.uint8)), "cuda")
+    torch.cuda.synchronize()
+
+    def plain_to_utf32():
+        int(kcen.census16_bits_ref(w16, U, False))  # the route's one sync
+        return kcx.u16_to_utf32_compose_ref(w16, U, False)
+
+    def plain_to_utf16():
+        lo, hi = torch.aminmax(w32[:W])  # the census, with its one sync
+        torch.stack([lo.to(torch.int64), hi.to(torch.int64),
+                     kv.utf32_first_bad_ref(w32, W)]).tolist()
+        return kcx.u32_to_utf16_compose_ref(w32, W, False)
+
+    def plain_latin1():
+        int(kcen.census_bits_ref(lat, B))  # the route's one sync
+        return kcx.latin1_to_utf8_compose_ref(lat, B)
+
+    ms = _time_pairs({
+        "utf16_to_utf32_compose": (lambda: kcx.u16_to_utf32_compose(w16, U, False),
+                                   lambda: kcx.u16_to_utf32_compose_ref(w16, U, False)),
+        "to_utf32 (ops.utf16, routed)": (lambda: o16.to_utf32(w16, U, False),
+                                         plain_to_utf32),
+    }, 2 * U, card)
+    ms.update(_time_pairs({
+        "utf32_to_utf16_compose": (lambda: kcx.u32_to_utf16_compose(w32, W, False),
+                                   lambda: kcx.u32_to_utf16_compose_ref(w32, W, False)),
+        "to_utf16 (ops.utf32, routed)": (lambda: o32.to_utf16(w32, W, False),
+                                         plain_to_utf16),
+    }, 4 * W, card))
+    ms.update(_time_pairs({
+        "latin1_to_utf8_compose": (lambda: kcx.latin1_to_utf8_compose(lat, B),
+                                   lambda: kcx.latin1_to_utf8_compose_ref(lat, B)),
+        "to_utf8 (ops.latin1, routed)": (lambda: ol1.to_utf8(lat, B), plain_latin1),
+    }, B, card))
+    breakdown(lambda: o16.to_utf32(w16, U, False),
+              f"utf16 to_utf32 (mixed 64 MiB as UTF-16LE, {U} units)", card)
+    breakdown(lambda: o32.to_utf16(w32, W, False),
+              f"utf32 to_utf16 (mixed 64 MiB as UTF-32LE, {W} words)", card)
+    breakdown(lambda: ol1.to_utf8(lat, B), f"latin1 to_utf8 ({B} B)", card)
+    moved = {"utf16_to_utf32_compose": 2 * U + 4 * w16.numel(),
+             "utf32_to_utf16_compose": 4 * W + 2 * 2 * w32.numel(),
+             "latin1_to_utf8_compose": B + 2 * lat.numel()}
+    return ms, moved
+
+
 def breakdown(fn, what: str, card: str, iters: int = 20) -> None:
     """Device time per call of each kernel ``fn`` runs, and the device's
     busy share of the window, from torch.profiler."""
@@ -1224,9 +1522,11 @@ def main() -> int:
         launches64 = slice64_phase("cuda")
         errs.update(parity32_phase("cuda"))
         launches32 = slice32_phase("cuda")
+        errs.update(parityx_phase("cuda"))
+        launchesx = slicex_phase("cuda")
         rate = copy_phase(card)
         ms, moved = times_phase(card)
-        for phase in (times64_phase, times32_phase):
+        for phase in (times64_phase, times32_phase, timesx_phase):
             more_ms, more_moved = phase(card)
             ms.update(more_ms)
             moved.update(more_moved)
@@ -1237,7 +1537,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     paths = ((launches8, PASSES), (launches16, PASSES16),
-             (launches64, PASSES64), (launches32, PASSES32))
+             (launches64, PASSES64), (launches32, PASSES32), (launchesx, PASSESX))
     launches = {k: got[k] for got, path in paths for k in path}
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],

@@ -209,6 +209,22 @@ def utf8_length_from_latin1(data) -> int:
     return _impl().utf8_length_from_latin1(as_u8(data))
 
 
+def latin1_length_from_utf16(length: int) -> int:
+    return _impl().latin1_length_from_utf16(length)
+
+
+def latin1_length_from_utf32(length: int) -> int:
+    return _impl().latin1_length_from_utf32(length)
+
+
+def utf16_length_from_latin1(length: int) -> int:
+    return _impl().utf16_length_from_latin1(length)
+
+
+def utf32_length_from_latin1(length: int) -> int:
+    return _impl().utf32_length_from_latin1(length)
+
+
 # ---------------------------------------------------------------------------
 # conversions: UTF-8 -> x
 
@@ -261,6 +277,18 @@ def convert_valid_utf8_to_utf16(data) -> bytes:
 
 def convert_valid_utf8_to_utf32(data) -> bytes:
     return _out_bytes(_impl().convert_valid_utf8_to_utf32(as_u8(data)))
+
+
+def convert_utf8_to_latin1_with_errors(data):
+    return _cvt(_impl().convert_utf8_to_latin1_with_errors, as_u8(data))
+
+
+def convert_utf8_to_latin1(data) -> bytes:
+    return _plain(_impl().convert_utf8_to_latin1_with_errors, as_u8(data))
+
+
+def convert_valid_utf8_to_latin1(data) -> bytes:
+    return _out_bytes(_impl().convert_valid_utf8_to_latin1(as_u8(data)))
 
 
 # ---------------------------------------------------------------------------
@@ -322,6 +350,182 @@ def convert_valid_utf32_to_utf8(data) -> bytes:
 
 
 # ---------------------------------------------------------------------------
+# conversions: UTF-16 <-> UTF-32
+
+
+def convert_utf16le_to_utf32_with_errors(data):
+    return _cvt(_impl().convert_utf16le_to_utf32_with_errors, as_u16(data))
+
+
+def convert_utf16be_to_utf32_with_errors(data):
+    return _cvt(_impl().convert_utf16be_to_utf32_with_errors, as_u16(data))
+
+
+def convert_utf16_to_utf32_with_errors(data):
+    return (convert_utf16le_to_utf32_with_errors(data) if _NATIVE_LE
+            else convert_utf16be_to_utf32_with_errors(data))
+
+
+def convert_utf16le_to_utf32(data) -> bytes:
+    return _plain(_impl().convert_utf16le_to_utf32_with_errors, as_u16(data))
+
+
+def convert_utf16be_to_utf32(data) -> bytes:
+    return _plain(_impl().convert_utf16be_to_utf32_with_errors, as_u16(data))
+
+
+def convert_utf16_to_utf32(data) -> bytes:
+    return convert_utf16le_to_utf32(data) if _NATIVE_LE else convert_utf16be_to_utf32(data)
+
+
+def convert_valid_utf16le_to_utf32(data) -> bytes:
+    return _out_bytes(_impl().convert_valid_utf16le_to_utf32(as_u16(data)))
+
+
+def convert_valid_utf16be_to_utf32(data) -> bytes:
+    return _out_bytes(_impl().convert_valid_utf16be_to_utf32(as_u16(data)))
+
+
+def convert_valid_utf16_to_utf32(data) -> bytes:
+    return (convert_valid_utf16le_to_utf32(data) if _NATIVE_LE
+            else convert_valid_utf16be_to_utf32(data))
+
+
+def convert_utf32_to_utf16le_with_errors(data):
+    return _cvt(_impl().convert_utf32_to_utf16le_with_errors, as_u32(data))
+
+
+def convert_utf32_to_utf16be_with_errors(data):
+    return _cvt(_impl().convert_utf32_to_utf16be_with_errors, as_u32(data))
+
+
+def convert_utf32_to_utf16_with_errors(data):
+    return (convert_utf32_to_utf16le_with_errors(data) if _NATIVE_LE
+            else convert_utf32_to_utf16be_with_errors(data))
+
+
+def convert_utf32_to_utf16le(data) -> bytes:
+    return _plain(_impl().convert_utf32_to_utf16le_with_errors, as_u32(data))
+
+
+def convert_utf32_to_utf16be(data) -> bytes:
+    return _plain(_impl().convert_utf32_to_utf16be_with_errors, as_u32(data))
+
+
+def convert_utf32_to_utf16(data) -> bytes:
+    return convert_utf32_to_utf16le(data) if _NATIVE_LE else convert_utf32_to_utf16be(data)
+
+
+def convert_valid_utf32_to_utf16le(data) -> bytes:
+    return _out_bytes(_impl().convert_valid_utf32_to_utf16le(as_u32(data)))
+
+
+def convert_valid_utf32_to_utf16be(data) -> bytes:
+    return _out_bytes(_impl().convert_valid_utf32_to_utf16be(as_u32(data)))
+
+
+def convert_valid_utf32_to_utf16(data) -> bytes:
+    return (convert_valid_utf32_to_utf16le(data) if _NATIVE_LE
+            else convert_valid_utf32_to_utf16be(data))
+
+
+# ---------------------------------------------------------------------------
+# conversions: UTF-16 / UTF-32 -> Latin-1
+
+
+def convert_utf16le_to_latin1_with_errors(data):
+    return _cvt(_impl().convert_utf16le_to_latin1_with_errors, as_u16(data))
+
+
+def convert_utf16be_to_latin1_with_errors(data):
+    return _cvt(_impl().convert_utf16be_to_latin1_with_errors, as_u16(data))
+
+
+def convert_utf16_to_latin1_with_errors(data):
+    return (convert_utf16le_to_latin1_with_errors(data) if _NATIVE_LE
+            else convert_utf16be_to_latin1_with_errors(data))
+
+
+def convert_utf16le_to_latin1(data) -> bytes:
+    return _plain(_impl().convert_utf16le_to_latin1_with_errors, as_u16(data))
+
+
+def convert_utf16be_to_latin1(data) -> bytes:
+    return _plain(_impl().convert_utf16be_to_latin1_with_errors, as_u16(data))
+
+
+def convert_utf16_to_latin1(data) -> bytes:
+    return convert_utf16le_to_latin1(data) if _NATIVE_LE else convert_utf16be_to_latin1(data)
+
+
+def convert_valid_utf16le_to_latin1(data) -> bytes:
+    return _out_bytes(_impl().convert_valid_utf16le_to_latin1(as_u16(data)))
+
+
+def convert_valid_utf16be_to_latin1(data) -> bytes:
+    return _out_bytes(_impl().convert_valid_utf16be_to_latin1(as_u16(data)))
+
+
+def convert_valid_utf16_to_latin1(data) -> bytes:
+    return (convert_valid_utf16le_to_latin1(data) if _NATIVE_LE
+            else convert_valid_utf16be_to_latin1(data))
+
+
+def convert_utf32_to_latin1_with_errors(data):
+    return _cvt(_impl().convert_utf32_to_latin1_with_errors, as_u32(data))
+
+
+def convert_utf32_to_latin1(data) -> bytes:
+    return _plain(_impl().convert_utf32_to_latin1_with_errors, as_u32(data))
+
+
+def convert_valid_utf32_to_latin1(data) -> bytes:
+    return _out_bytes(_impl().convert_valid_utf32_to_latin1(as_u32(data)))
+
+
+# ---------------------------------------------------------------------------
+# conversions: Latin-1 -> x (always valid input)
+
+
+def convert_latin1_to_utf8(data) -> bytes:
+    return _out_bytes(_impl().convert_latin1_to_utf8(as_u8(data)))
+
+
+def convert_latin1_to_utf8_safe(data, capacity: int) -> bytes:
+    """Capacity-limited variant: as many whole characters as fit into
+    ``capacity`` bytes."""
+    arr = as_u8(data)
+    # every character emits at least one byte, so the first ``capacity``
+    # characters already cover the output budget
+    if arr.shape[0] > capacity:
+        arr = arr[:capacity]
+    out = _impl().convert_latin1_to_utf8(arr)
+    if out.shape[0] <= capacity:
+        return _out_bytes(out)
+    out = out[:capacity]
+    # do not split a 2-byte character at the boundary
+    if capacity > 0 and (int(out[capacity - 1]) & 0xE0) == 0xC0:
+        out = out[: capacity - 1]
+    return _out_bytes(out)
+
+
+def convert_latin1_to_utf16le(data) -> bytes:
+    return _out_bytes(_impl().convert_latin1_to_utf16le(as_u8(data)))
+
+
+def convert_latin1_to_utf16be(data) -> bytes:
+    return _out_bytes(_impl().convert_latin1_to_utf16be(as_u8(data)))
+
+
+def convert_latin1_to_utf16(data) -> bytes:
+    return convert_latin1_to_utf16le(data) if _NATIVE_LE else convert_latin1_to_utf16be(data)
+
+
+def convert_latin1_to_utf32(data) -> bytes:
+    return _out_bytes(_impl().convert_latin1_to_utf32(as_u8(data)))
+
+
+# ---------------------------------------------------------------------------
 # C-style *_into variants: write into a caller-provided numpy buffer and
 # return the unit count (0 on error)
 
@@ -354,6 +558,10 @@ def convert_utf16be_to_utf8_into(data, out: np.ndarray) -> int:
 def convert_utf32_to_utf8_into(data, out: np.ndarray) -> int:
     res, produced = _impl().convert_utf32_to_utf8_with_errors(as_u32(data))
     return _into(out, produced) if res.is_ok else 0
+
+
+def convert_latin1_to_utf8_into(data, out: np.ndarray) -> int:
+    return _into(out, _impl().convert_latin1_to_utf8(as_u8(data)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """TorchImplementation: host glue around the torch ops (port of
-simdutf_tpu/ops/impl.py for the slices the port serves: UTF-8 -> UTF-16,
-UTF-16 -> UTF-8, UTF-8 <-> UTF-32 and forgiving base64).
+simdutf_tpu/ops/impl.py for the slices the port serves: the transcode
+matrix over UTF-8, UTF-16LE/BE, UTF-32 and Latin-1, and forgiving base64).
 
 Inputs are padded to the JAX package's buckets (power of two >= 1 Ki
 elements with 8 slack elements, 16 Mi steps above 64 Mi; elements are
@@ -21,6 +21,7 @@ from . import runtime
 from .errors import Result, error_code as ec
 from .kernels import validate as kv
 from .ops import base64_ops as ob
+from .ops import latin1 as ol1
 from .ops import utf8 as o8
 from .ops import utf16 as o16
 from .ops import utf32 as o32
@@ -89,9 +90,17 @@ def _converted(code, pos, out, out_len, cut):
     return Result(ec(code), pos), cut(out, out_len)
 
 
+def _valid(out_total, cut) -> np.ndarray:
+    """The output of a conversion that reports no error: ``(out, total)``
+    cut to ``total``."""
+    out, total = out_total
+    return cut(out, int(total))
+
+
 class TorchImplementation:
-    """The UTF-8 -> UTF-16, UTF-16 -> UTF-8 and UTF-8 <-> UTF-32 slices,
-    with validation and counts on every side, and forgiving base64 decode
+    """The validating and valid transcodes between UTF-8, UTF-16LE/BE,
+    UTF-32 and Latin-1 (the twelve directions of the JAX package's normal
+    tier), with validation and counts, and forgiving base64 decode
     (uint8 and char16 input, every option and last-chunk mode) and
     encode, on torch tensors on one explicit device: Hopper kernels on a
     CUDA device of compute capability 9.0, their plain torch versions on
@@ -238,6 +247,85 @@ class TorchImplementation:
     def convert_valid_utf32_to_utf8(self, w):
         out, total = o32.to_utf8_valid(*self._stage(w))
         return _cut8(out, int(total))
+
+    # -- UTF-16 <-> UTF-32 ---------------------------------------------------
+    def convert_utf16le_to_utf32_with_errors(self, w):
+        return _converted(*o16.to_utf32(*self._stage(w), False), _cut32)
+
+    def convert_utf16be_to_utf32_with_errors(self, w):
+        return _converted(*o16.to_utf32(*self._stage(w), True), _cut32)
+
+    def convert_valid_utf16le_to_utf32(self, w):
+        return _valid(o16.to_utf32_valid(*self._stage(w), False), _cut32)
+
+    def convert_valid_utf16be_to_utf32(self, w):
+        return _valid(o16.to_utf32_valid(*self._stage(w), True), _cut32)
+
+    def convert_utf32_to_utf16le_with_errors(self, w):
+        return _converted(*o32.to_utf16(*self._stage(w), False), _cut)
+
+    def convert_utf32_to_utf16be_with_errors(self, w):
+        return _converted(*o32.to_utf16(*self._stage(w), True), _cut)
+
+    def convert_valid_utf32_to_utf16le(self, w):
+        return _valid(o32.to_utf16_valid(*self._stage(w), False), _cut)
+
+    def convert_valid_utf32_to_utf16be(self, w):
+        return _valid(o32.to_utf16_valid(*self._stage(w), True), _cut)
+
+    # -- x -> Latin-1 --------------------------------------------------------
+    def convert_utf8_to_latin1_with_errors(self, b):
+        return _converted(*o8.to_latin1(*self._stage(b)), _cut8)
+
+    def convert_valid_utf8_to_latin1(self, b):
+        return _valid(o8.to_latin1_valid(*self._stage(b)), _cut8)
+
+    def convert_utf16le_to_latin1_with_errors(self, w):
+        return _converted(*o16.to_latin1(*self._stage(w), False), _cut8)
+
+    def convert_utf16be_to_latin1_with_errors(self, w):
+        return _converted(*o16.to_latin1(*self._stage(w), True), _cut8)
+
+    def convert_valid_utf16le_to_latin1(self, w):
+        return _valid(o16.to_latin1_valid(*self._stage(w), False), _cut8)
+
+    def convert_valid_utf16be_to_latin1(self, w):
+        return _valid(o16.to_latin1_valid(*self._stage(w), True), _cut8)
+
+    def convert_utf32_to_latin1_with_errors(self, w):
+        return _converted(*o32.to_latin1(*self._stage(w)), _cut8)
+
+    def convert_valid_utf32_to_latin1(self, w):
+        return _valid(o32.to_latin1_valid(*self._stage(w)), _cut8)
+
+    # -- Latin-1 -> x --------------------------------------------------------
+    def convert_latin1_to_utf8(self, b):
+        return _valid(ol1.to_utf8(*self._stage(b)), _cut8)
+
+    def convert_latin1_to_utf16le(self, b):
+        x, n = self._stage(b)
+        return _cut(ol1.to_utf16(x, n, False), n)
+
+    def convert_latin1_to_utf16be(self, b):
+        x, n = self._stage(b)
+        return _cut(ol1.to_utf16(x, n, True), n)
+
+    def convert_latin1_to_utf32(self, b):
+        x, n = self._stage(b)
+        return _cut32(ol1.to_utf32(x, n), n)
+
+    # -- Latin-1 lengths: arithmetic, one unit per character -----------------
+    def latin1_length_from_utf16(self, length: int) -> int:
+        return length
+
+    def latin1_length_from_utf32(self, length: int) -> int:
+        return length
+
+    def utf16_length_from_latin1(self, length: int) -> int:
+        return length
+
+    def utf32_length_from_latin1(self, length: int) -> int:
+        return length
 
     # -- base64 --------------------------------------------------------------
     def maximal_binary_length_from_base64(self, src) -> int:

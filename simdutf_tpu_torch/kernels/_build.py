@@ -58,6 +58,12 @@ SIGNATURES = {
     "compose32_emit": (_P, _I64, _I32, _P, _P, _P),
     "composex_count": (_P, _I64, _I32, _P, _P, _P, _P),
     "composex_emit": (_P, _I64, _I32, _P, _P, _P),
+    "latin1_utf8_count": (_P, _I64, _I32, _P, _P),
+    "latin1_utf8_emit": (_P, _I64, _I32, _P, _P, _P),
+    "u16_to_u32_count": (_P, _I64, _I32, _I32, _P, _P, _P, _P),
+    "u16_to_u32_emit": (_P, _I64, _I32, _I32, _P, _P, _P),
+    "u32_to_u16_count": (_P, _I64, _I32, _P, _P, _P, _P),
+    "u32_to_u16_emit": (_P, _I64, _I32, _I32, _P, _P, _P),
 }
 
 #: kernel launches per wrapper name since the last :func:`reset_launches`

@@ -1,0 +1,82 @@
+"""Latin-1 ops on torch tensors (port of simdutf_tpu/ops/latin1.py): pure
+widen and expand, no error paths.
+
+Every function takes a padded 1-D ``torch.uint8`` buffer and the logical
+``length`` (an int). On a CUDA tensor the kernel wrappers in
+``simdutf_tpu_torch.kernels`` launch their Hopper kernels; on a CPU tensor
+they run their plain versions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels import census as kcen
+from ..kernels import composex as kcx
+from ..kernels import validate as kv
+from .common import (bytes_out, excl_scan, positions, route, scalar, scatter_writes,
+                     to_u16)
+
+
+def utf8_length(b: torch.Tensor, length: int) -> torch.Tensor:
+    return kv.latin1_utf8_length(b, length)
+
+
+def _utf8_general(b: torch.Tensor, length: int):
+    """The plain scan -> scatter engine (the JAX package's
+    ``scatter_general`` of ``to_utf8``) and the compose kernel's plain
+    version: 1 byte per byte below 0x80, 2 above. Returns (out uint8[2n],
+    total)."""
+    n = b.shape[0]
+    dev = b.device
+    x = b.to(torch.int32)
+    in_r = positions(n, dev) < length
+    hi = (x >= 0x80) & in_r
+    off, inc = excl_scan(in_r.to(torch.int64) + hi)
+    total = inc[n - 1] if n else scalar(0, dev)
+    out = scatter_writes(2 * n, [(in_r, off, torch.where(hi, (x >> 6) | 0xC0, x)),
+                                 (hi, off + 1, (x & 0x3F) | 0x80)], dev)
+    return out.to(torch.uint8), total
+
+
+def census(b: torch.Tensor, length: int):
+    """(ascii, allhi) as Python bools from one census pass and one device
+    sync: every in-range byte below 0x80; every one at or above 0x80, and
+    at least one."""
+    bits = int(kcen.census_bits(b, length))
+    return ((bits & kcen.BIT_NONASCII) == 0,
+            (bits & kcen.BIT_HASLO) == 0 and length > 0)
+
+
+def to_utf8(b: torch.Tensor, length: int):
+    """Returns (out uint8[2N], out_len), routed on the census: an all-ASCII
+    buffer is a copy, an all-high one a fixed-rate 1:2 expand (plain torch,
+    as in the JAX package), and mixed input takes the compose kernel
+    (kernels/composex.latin1_to_utf8_compose). Bytes past out_len are
+    zero."""
+    n = b.shape[0]
+    dev = b.device
+    ascii_, allhi = census(b, length)
+
+    def br_ascii():
+        return bytes_out(b.to(torch.int32), length, 2 * n), scalar(length, dev)
+
+    def br_hi():
+        x = b.to(torch.int32)
+        by = torch.stack([(x >> 6) | 0xC0, (x & 0x3F) | 0x80], 1).reshape(-1)
+        return bytes_out(by, 2 * length, 2 * n), scalar(2 * length, dev)
+
+    return route([(ascii_, br_ascii), (allhi, br_hi)],
+                 lambda: kcx.latin1_to_utf8_compose(b, length))
+
+
+def to_utf16(b: torch.Tensor, length: int, big_endian: bool) -> torch.Tensor:
+    """uint16[N]: every byte of the buffer widened, past ``length`` too (a
+    whole-buffer cast, as in the JAX package)."""
+    w = b.to(torch.int32)
+    return to_u16((w << 8) & 0xFFFF if big_endian else w)
+
+
+def to_utf32(b: torch.Tensor, length: int) -> torch.Tensor:
+    """int32[N] of uint32 words: every byte of the buffer widened."""
+    return b.to(torch.int32)

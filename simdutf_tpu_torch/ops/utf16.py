@@ -1,5 +1,5 @@
-"""UTF-16 ops on torch tensors (port of the validation, count and
-UTF-8 transcode part of simdutf_tpu/ops/utf16.py).
+"""UTF-16 ops on torch tensors (port of the validation, counts and the
+UTF-8, UTF-32 and Latin-1 transcodes of simdutf_tpu/ops/utf16.py).
 
 Every function takes a padded 1-D ``torch.uint16`` buffer of units in
 storage order, the logical ``length`` in units (an int), and
@@ -18,6 +18,7 @@ from ..errors import error_code as ec
 
 from ..kernels import census as kcen
 from ..kernels import compose8 as kc8
+from ..kernels import composex as kcx
 from ..kernels import utf16_kernels as k16
 from .common import (
     BIG,
@@ -36,6 +37,7 @@ from .common import (
 )
 
 _SURROGATE = int(ec.SURROGATE)
+_TOO_LARGE = int(ec.TOO_LARGE)
 
 
 
@@ -225,3 +227,137 @@ def to_utf8_valid(w: torch.Tensor, length: int, big_endian: bool):
         [(p, wrap(br)) for p, br in zip((ascii_, u2r, astral), fast)],
         lambda: kc8.to_utf8_compose(w, length, big_endian)[:2],
     )
+
+
+def census32(w: torch.Tensor, length: int, big_endian: bool):
+    """(bmp, astral) as Python bools, the routing facts of
+    simdutf_tpu/ops/utf16.to_utf32: no surrogate in range (a plain torch
+    reduction over the stored units, as the JAX package takes it with a
+    separate XLA reduce), and census16's alternating-pair class. Both come
+    back to the host in one read."""
+    bits = kcen.census16_bits(w, length, big_endian)
+    # on the stored units as int16: a native unit in D800-DFFF is -10240 to
+    # -8193 (>> 11 gives -5), and a BE unit's native high byte is its low
+    x = w.view(torch.int16)[:length]
+    sur = (((x & 0xF8) == 0xD8) if big_endian else ((x >> 11) == -5)).any()
+    bits, sur = torch.stack([bits.to(torch.int64), sur.to(torch.int64)]).tolist()
+    astral = (bits & kcen.BIT16_VASTRAL) == 0 and length % 2 == 0 and length > 0
+    return not sur, astral
+
+
+def _u32_fast_branches(w: torch.Tensor, length: int, n: int, big_endian: bool):
+    """The fixed-rate utf16->utf32 branches (bmp: a widen; astral: one
+    word per pair); each returns (out int32[n], out_len) bit-identical to
+    the general engine on its class. Plain torch on every device: the JAX
+    package has no Pallas kernel here either."""
+
+    def br_bmp():
+        return native(w, length, big_endian), length
+
+    def br_astral():
+        pr = _native16(w[: n // 2 * 2], big_endian).view(-1, 2)
+        cp = ((pr[:, 0] - 0xD7C0) << 10) | (pr[:, 1] & 0x3FF)
+        cnt = length // 2
+        out = torch.zeros(n, dtype=torch.int32, device=w.device)
+        out[: cp.shape[0]] = zero_tail(cp, cnt)
+        return out, cnt
+
+    return br_bmp, br_astral
+
+
+def _utf32_general_parts(w: torch.Tensor, length: int, big_endian: bool):
+    """The plain engine, scan -> scatter (the JAX package's
+    ``scatter_general`` of ``to_utf32``), and the compose kernel's plain
+    version. Every start (an in-range unit that is not a low surrogate)
+    writes one word, valid or not: a high surrogate the code point it makes
+    with the next unit (0 at/after the length), so a lone one gives a
+    mechanical value; a lone low writes nothing. Nothing is zeroed past the
+    valid prefix. Returns (err_pos, err_code, out int32[n], total,
+    err_len)."""
+    n = w.shape[0]
+    dev = w.device
+    x = native(w, length, big_endian)
+    err_pos = first_error(x, length)
+    err_code = torch.where(err_pos == BIG, 0, _SURROGATE).to(torch.int64)
+    in_r = positions(n, dev) < length
+    start = ((x & 0xFC00) != 0xDC00) & in_r
+    hi = ((x & 0xFC00) == 0xD800) & in_r
+    cp = torch.where(hi, ((x - 0xD800) << 10) + (shift_left(x, 1) - 0xDC00) + 0x10000, x)
+    off, inc = excl_scan(start.to(torch.int64))
+    total = inc[n - 1] if n else scalar(0, dev)
+    out = scatter_writes(n, [(start, off, cp)], dev)
+    return err_pos, err_code, out, total, count_before(off, err_pos)
+
+
+def to_utf32(w: torch.Tensor, length: int, big_endian: bool):
+    """Validating UTF-16 -> UTF-32, routed on :func:`census32`: a buffer
+    with no surrogate widens, an all-pairs one maps each pair to a word,
+    and all other input takes the compose kernel
+    (kernels/composex.u16_to_utf32_compose).
+
+    Returns (err_code, err_pos, out int32[N] of uint32 words, out_len); on
+    error out_len counts the words of the valid prefix, and the words of
+    every later start stay in ``out`` past it, as in the JAX package."""
+    n = w.shape[0]
+    dev = w.device
+    bmp, astral = census32(w, length, big_endian)
+    fast = _u32_fast_branches(w, length, n, big_endian)
+
+    def wrap(br):
+        def f():
+            out, cnt = br()
+            return scalar(0, dev), scalar(length, dev), out, scalar(cnt, dev)
+        return f
+
+    def general():
+        out, total, err_any, err_pos, err_code, err_len = kcx.u16_to_utf32_compose(
+            w, length, big_endian)
+        return (torch.where(err_any, err_code, torch.zeros_like(err_code)),
+                torch.where(err_any, err_pos, scalar(length, dev)),
+                out,
+                torch.where(err_any, err_len, total))
+
+    return route([(p, wrap(br)) for p, br in zip((bmp, astral), fast)], general)
+
+
+def to_utf32_valid(w: torch.Tensor, length: int, big_endian: bool):
+    """convert_valid_utf16*_to_utf32: assumes valid input. Returns
+    (out int32[N], out_len), routed like :func:`to_utf32`."""
+    n = w.shape[0]
+    dev = w.device
+    bmp, astral = census32(w, length, big_endian)
+    fast = _u32_fast_branches(w, length, n, big_endian)
+
+    def wrap(br):
+        def f():
+            out, cnt = br()
+            return out, scalar(cnt, dev)
+        return f
+
+    return route([(p, wrap(br)) for p, br in zip((bmp, astral), fast)],
+                 lambda: kcx.u16_to_utf32_compose(w, length, big_endian)[:2])
+
+
+def to_latin1(w: torch.Tensor, length: int, big_endian: bool):
+    """Returns (err_code, err_pos, out uint8[N], out_len): the first unit
+    above 0xFF is TOO_LARGE (surrogates are irrelevant), and ``out`` holds
+    the low byte of every in-range unit, past the error too. Plain torch,
+    as in the JAX package."""
+    n = w.shape[0]
+    dev = w.device
+    x = native(w, length, big_endian)
+    idx = positions(n, dev)
+    bad = (x > 0xFF) & (idx < length)
+    err_pos = torch.where(bad, idx, torch.full_like(idx, BIG)).min() if n else scalar(BIG, dev)
+    ok = err_pos == BIG
+    return (torch.where(ok, 0, _TOO_LARGE).to(torch.int64),
+            torch.where(ok, length, err_pos),
+            (x & 0xFF).to(torch.uint8),
+            torch.where(ok, length, err_pos))
+
+
+def to_latin1_valid(w: torch.Tensor, length: int, big_endian: bool):
+    """convert_valid_utf16*_to_latin1: a narrowing store. (out uint8[N],
+    out_len)."""
+    x = native(w, length, big_endian)
+    return (x & 0xFF).to(torch.uint8), scalar(length, w.device)

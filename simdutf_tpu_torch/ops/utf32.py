@@ -1,5 +1,5 @@
-"""UTF-32 ops on torch tensors (port of the validation, count, census and
-UTF-8 transcode part of simdutf_tpu/ops/utf32.py).
+"""UTF-32 ops on torch tensors (port of the validation, counts, census and
+the UTF-8, UTF-16 and Latin-1 transcodes of simdutf_tpu/ops/utf32.py).
 
 Every function takes a padded 1-D ``torch.int32`` buffer holding the bits
 of little-endian uint32 words (a word >= 2^31 is negative here) and the
@@ -18,8 +18,8 @@ import torch
 from ..errors import error_code as ec
 from ..kernels import composex as kcx
 from ..kernels import validate as kv
-from .common import (BIG, bytes_out, count_before, excl_scan, positions, route,
-                     scalar, scatter_writes, zero_tail)
+from .common import (BIG, bswap16, bytes_out, count_before, excl_scan, positions,
+                     route, scalar, scatter_writes, to_u16, zero_tail)
 
 _SURROGATE = int(ec.SURROGATE)
 _TOO_LARGE = int(ec.TOO_LARGE)
@@ -220,3 +220,124 @@ def to_utf8_valid(w: torch.Tensor, length: int):
 
     return route([(p, wrap(br)) for p, br in zip((ascii_, u2, u3, astral), fast)],
                  lambda: kcx.u32_to_utf8_compose(w, length)[:2])
+
+
+def _u16_fast_branches(w: torch.Tensor, length: int, n: int, big_endian: bool):
+    """The two fixed-rate utf32->utf16 branches (bmp: a narrowing store;
+    astral: two units per word); each returns (out uint16[2n], out_len)
+    bit-identical to the general engine on its class
+    (simdutf_tpu/ops/utf32._u16_fast_branches). Plain torch on every
+    device: the JAX package has no Pallas kernel here either."""
+
+    def swp(u):
+        return bswap16(u) if big_endian else u
+
+    def br_bmp():
+        out = torch.zeros(2 * n, dtype=torch.int32, device=w.device)
+        out[:n] = swp(native(w, length))
+        return to_u16(out), length
+
+    def br_astral():
+        cpx = native(w, length) - 0x10000
+        u = torch.stack([swp(0xD800 + (cpx >> 10)), swp(0xDC00 + (cpx & 0x3FF))], 1)
+        return to_u16(zero_tail(u.reshape(-1), 2 * length)), 2 * length
+
+    return br_bmp, br_astral
+
+
+def _utf16_general_parts(w: torch.Tensor, length: int, big_endian: bool):
+    """The plain engine, scan -> scatter (the JAX package's scatter form of
+    ``to_utf16`` with ``_emit_utf16``), and the compose kernel's plain
+    version. Every in-range word emits its units, a word above 0x10FFFF
+    the one unit 0x0000 and a surrogate itself, and nothing is zeroed past
+    the valid prefix. Returns (err_pos, err_code, out uint16[2n], total,
+    err_len)."""
+    n = w.shape[0]
+    dev = w.device
+    x = native(w, length)
+    err_pos, err_code = first_error(x, length)
+    in_r = positions(n, dev) < length
+    cp = torch.where(_too_large(x), 0, x)
+    is4 = (cp > 0xFFFF) & in_r
+    off, inc = excl_scan(in_r.to(torch.int64) + is4)
+    total = inc[n - 1] if n else scalar(0, dev)
+    cpx = cp - 0x10000
+    unit0 = torch.where(is4, 0xD800 + (cpx >> 10), cp)
+    unit1 = 0xDC00 + (cpx & 0x3FF)
+    if big_endian:
+        unit0, unit1 = bswap16(unit0), bswap16(unit1)
+    out = scatter_writes(2 * n, [(in_r, off, unit0), (is4, off + 1, unit1)], dev)
+    return err_pos, err_code, to_u16(out), total, count_before(off, err_pos)
+
+
+def to_utf16(w: torch.Tensor, length: int, big_endian: bool):
+    """Validating UTF-32 -> UTF-16, routed on the census: whole-buffer BMP
+    (no surrogate) or astral input takes a fixed-rate branch (the census
+    predicate is its validity proof); all other input takes the compose
+    kernel (kernels/composex.u32_to_utf16_compose).
+
+    Returns (err_code, err_pos, out uint16[2N], out_len); on error out_len
+    counts the units of the valid prefix, and the units of every later
+    in-range word stay in ``out`` past it, as in the JAX package."""
+    n = w.shape[0]
+    dev = w.device
+    _, _, _, astral, bmp = census(w, length)
+    fast = _u16_fast_branches(w, length, n, big_endian)
+
+    def wrap(br):
+        def f():
+            out, cnt = br()
+            return scalar(0, dev), scalar(length, dev), out, scalar(cnt, dev)
+        return f
+
+    def general():
+        out, total, err_any, err_pos, err_code, err_len = kcx.u32_to_utf16_compose(
+            w, length, big_endian)
+        return (torch.where(err_any, err_code, torch.zeros_like(err_code)),
+                torch.where(err_any, err_pos, scalar(length, dev)),
+                out,
+                torch.where(err_any, err_len, total))
+
+    return route([(p, wrap(br)) for p, br in zip((bmp, astral), fast)], general)
+
+
+def to_utf16_valid(w: torch.Tensor, length: int, big_endian: bool):
+    """convert_valid_utf32_to_utf16*: assumes valid input. Returns
+    (out uint16[2N], out_len), census-routed like :func:`to_utf16`."""
+    n = w.shape[0]
+    dev = w.device
+    _, _, _, astral, bmp = census(w, length)
+    fast = _u16_fast_branches(w, length, n, big_endian)
+
+    def wrap(br):
+        def f():
+            out, cnt = br()
+            return out, scalar(cnt, dev)
+        return f
+
+    return route([(p, wrap(br)) for p, br in zip((bmp, astral), fast)],
+                 lambda: kcx.u32_to_utf16_compose(w, length, big_endian)[:2])
+
+
+def to_latin1(w: torch.Tensor, length: int):
+    """Returns (err_code, err_pos, out uint8[N], out_len): the first word
+    above 0xFF (as uint32) is TOO_LARGE, and ``out`` holds the low byte of
+    every in-range word, past the error too. Plain torch, as in the JAX
+    package."""
+    n = w.shape[0]
+    dev = w.device
+    x = native(w, length)
+    idx = positions(n, dev)
+    bad = ((x < 0) | (x > 0xFF)) & (idx < length)
+    err_pos = torch.where(bad, idx, torch.full_like(idx, BIG)).min() if n else scalar(BIG, dev)
+    ok = err_pos == BIG
+    return (torch.where(ok, 0, _TOO_LARGE).to(torch.int64),
+            torch.where(ok, length, err_pos),
+            (x & 0xFF).to(torch.uint8),
+            torch.where(ok, length, err_pos))
+
+
+def to_latin1_valid(w: torch.Tensor, length: int):
+    """convert_valid_utf32_to_latin1: a narrowing store. (out uint8[N],
+    out_len)."""
+    return (native(w, length) & 0xFF).to(torch.uint8), scalar(length, w.device)

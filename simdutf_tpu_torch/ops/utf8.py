@@ -1,5 +1,5 @@
-"""UTF-8 ops on torch tensors (port of the UTF-16 and UTF-32 transcodes,
-validation and counts of simdutf_tpu/ops/utf8.py).
+"""UTF-8 ops on torch tensors (port of the UTF-16, UTF-32 and Latin-1
+transcodes, validation and counts of simdutf_tpu/ops/utf8.py).
 
 Every function takes a padded 1-D ``torch.uint8`` buffer and the logical
 ``length`` (an int); bytes at/after ``length`` are ignored. Results stay on
@@ -410,3 +410,73 @@ def to_utf32_valid(b: torch.Tensor, length: int):
 
     return route([(p, wrap(br)) for p, br in zip((ascii_, u2, u3, u4), fast)],
                  lambda: kc32.to_utf32_compose(b, length)[:2])
+
+
+def _latin1_leads(bb: torch.Tensor, length: int):
+    """(lead mask, off, total, out uint8[n]) of the UTF-8 -> Latin-1
+    scatter: every in-range lead writes its 1- or 2-byte value's low byte
+    (a 3- or 4-byte lead its mechanical 2-byte value's), valid or not."""
+    n = bb.shape[0]
+    dev = bb.device
+    b1 = shift_left(bb, 1)
+    lead = ((bb & 0xC0) != 0x80) & (positions(n, dev) < length)
+    vals = torch.where(bb < 0x80, bb, ((bb & 0x1F) << 6) | (b1 & 0x3F))
+    off, inc = excl_scan(lead.to(torch.int64))
+    total = inc[n - 1] if n else scalar(0, dev)
+    out = scatter_writes(n, [(lead, off, vals)], dev)
+    return lead, off, total, (out & 0xFF).to(torch.uint8)
+
+
+def to_latin1(b: torch.Tensor, length: int):
+    """UTF-8 -> Latin-1 with its own error lattice (simdutf_tpu/ops/utf8
+    .to_latin1): a 2-byte sequence above 0xFF and every 3- or 4-byte lead
+    are TOO_LARGE, a continuation left over after a sequence is TOO_LONG
+    at itself, and a continuation at 0 is TOO_LONG there; the first lead's
+    code wins. Plain torch scan -> scatter, as in the JAX package, which
+    has no kernel here.
+
+    Returns (err_code, err_pos, out uint8[N], out_len); ``out`` holds the
+    value of every in-range lead, past the error too."""
+    n = b.shape[0]
+    dev = b.device
+    idx = positions(n, dev)
+    big = torch.full_like(idx, BIG)
+    bb = zero_tail(b.to(torch.int32), length)
+    b1 = shift_left(bb, 1)
+    ascii_ = bb < 0x80
+    lead2 = (bb & 0xE0) == 0xC0
+    c1 = (b1 & 0xC0) == 0x80
+    cp2 = ((bb & 0x1F) << 6) | (b1 & 0x3F)
+
+    err = torch.zeros_like(bb)
+    for cond, code in ((lead2 & ~c1, _TOO_SHORT),
+                       (lead2 & c1 & (cp2 < 0x80), _OVERLONG),
+                       (lead2 & c1 & (cp2 > 0xFF), _TOO_LARGE),
+                       (((bb & 0xF0) == 0xE0) | ((bb & 0xF8) == 0xF0), _TOO_LARGE),
+                       (bb >= 0xF8, _HEADER_BITS)):
+        err = torch.where(cond, code, err)
+
+    lead, off, total, out = _latin1_leads(bb, length)
+    bad = torch.where(lead & (err != 0), idx, big)
+    pos1 = bad.min()
+    code1 = err[bad.argmin()].to(torch.int64)
+    seqlen = torch.where(ascii_, 1, 2)
+    c2 = (shift_left(bb, 2) & 0xC0) == 0x80
+    gap = ((seqlen == 1) & c1) | ((seqlen == 2) & c2)
+    pos2 = torch.where(lead & (err == 0) & gap, idx + seqlen, big).min()
+    pos3 = torch.where(((bb[0] & 0xC0) == 0x80), 0, BIG).to(torch.int64)
+    err_pos = torch.minimum(torch.minimum(pos1, pos2), pos3)
+    ok = err_pos == BIG
+    err_code = torch.where(err_pos == pos1, code1, _TOO_LONG)
+    return (torch.where(ok, 0, err_code).to(torch.int64),
+            torch.where(ok, length, err_pos),
+            out,
+            torch.where(ok, total, count_before(off, err_pos)))
+
+
+def to_latin1_valid(b: torch.Tensor, length: int):
+    """convert_valid_utf8_to_latin1: valid Latin-1-range UTF-8 has only
+    ASCII and 2-byte sequences, so this skips the error lattice. Returns
+    (out uint8[N], out_len)."""
+    _, _, total, out = _latin1_leads(zero_tail(b.to(torch.int32), length), length)
+    return out, total

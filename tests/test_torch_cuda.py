@@ -257,6 +257,69 @@ def test_compose32_matches_plain_version(cuda, name, data):
     torch.cuda.synchronize()
 
 
+def _inputs16to32():
+    """(name, native units) for utf16_to_utf32_compose: lone surrogates at
+    0, at the 2048-unit tile edges and at the end, a pair straddling an
+    edge."""
+    rng = np.random.default_rng(5)
+    alphabet = ["a", "é", "東", "\U0001f642", " ", "\U0010ffff"]
+    text = "".join(alphabet[i] for i in rng.integers(0, 6, 12_000))
+    mixed = np.frombuffer(text.encode("utf-16-le"), np.uint16)
+    out = [("mixed", mixed), ("empty", np.zeros(0, np.uint16)),
+           ("pair@2047", np.frombuffer(("x" * 2047 + "\U0001f642é").encode("utf-16-le"),
+                                       np.uint16))]
+    for pos, unit in ((0, 0xDC00), (2047, 0xD800), (2048, 0xDFFF), (4095, 0xDBFF),
+                      (len(mixed) - 1, 0xD83D)):
+        d = mixed.copy()
+        d[pos] = unit
+        out.append((f"{unit:x}@{pos}", d))
+    return out
+
+
+@pytest.mark.parametrize("name,units", _inputs16to32())
+@pytest.mark.parametrize("be", [False, True])
+def test_utf16_to_utf32_compose_matches_plain_version(cuda, name, units, be):
+    L = len(units)
+    n = L + 13  # units past the length are garbage
+    buf = np.random.default_rng(n).integers(0, 1 << 16, n).astype(np.uint16)
+    buf[:L] = units.byteswap() if be else units
+    w = torch.from_numpy(buf.view(np.int16)).to(cuda).view(torch.uint16)
+    assert _same(kcx.u16_to_utf32_compose(w, L, be), kcx.u16_to_utf32_compose_ref(w, L, be))
+    if L > 1:  # a view one unit into its storage takes the unit loads
+        v = w[1:]
+        assert _same(kcx.u16_to_utf32_compose(v, L - 1, be),
+                     kcx.u16_to_utf32_compose_ref(v, L - 1, be))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name,words", _inputs32())
+@pytest.mark.parametrize("be", [False, True])
+def test_utf32_to_utf16_compose_matches_plain_version(cuda, name, words, be):
+    L = len(words)
+    n = L + 13  # words past the length are garbage
+    buf = np.random.default_rng(n).integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    buf[:L] = words
+    w = torch.from_numpy(buf.view(np.int32)).to(cuda)
+    assert _same(kcx.u32_to_utf16_compose(w, L, be), kcx.u32_to_utf16_compose_ref(w, L, be))
+    if L > 1:
+        v = w[1:]
+        assert _same(kcx.u32_to_utf16_compose(v, L - 1, be),
+                     kcx.u32_to_utf16_compose_ref(v, L - 1, be))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 2048, 2049, 100_003])
+def test_latin1_to_utf8_compose_matches_plain_version(cuda, n):
+    rng = np.random.default_rng(n)
+    buf = rng.integers(0, 256, n + 13).astype(np.uint8)  # garbage past n
+    b = torch.from_numpy(buf).to(cuda)
+    assert _same(kcx.latin1_to_utf8_compose(b, n), kcx.latin1_to_utf8_compose_ref(b, n))
+    if n > 1:  # off the 8-byte grid: byte loads
+        assert _same(kcx.latin1_to_utf8_compose(b[3:], n - 1),
+                     kcx.latin1_to_utf8_compose_ref(b[3:], n - 1))
+    torch.cuda.synchronize()
+
+
 def test_compose_wrappers_make_no_host_sync(cuda):
     """Count pass, tile_glue and emit pass of every compose and compaction
     wrapper run without a device-to-host read."""
@@ -272,7 +335,10 @@ def test_compose_wrappers_make_no_host_sync(cuda):
              lambda: kc8.to_utf8_compose(w16, w16.numel(), False),
              lambda: kc32.to_utf32_compose(x, x.numel()),
              lambda: kcx.u32_to_utf8_compose(w32, w32.numel()),
-             lambda: kc64.compact_codes(chars, chars.numel(), False, False)]
+             lambda: kc64.compact_codes(chars, chars.numel(), False, False),
+             lambda: kcx.u16_to_utf32_compose(w16, w16.numel(), False),
+             lambda: kcx.u32_to_utf16_compose(w32, w32.numel(), True),
+             lambda: kcx.latin1_to_utf8_compose(x, x.numel())]
     for call in calls:  # build and load the library first
         call()
     torch.cuda.synchronize()
