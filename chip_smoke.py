@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
-Five paths, each driven through the port's own api
+Six paths, each driven through the port's own api
 (``simdutf_tpu_torch.api`` on "cuda"): UTF-8 -> UTF-16LE/BE with UTF-8
 validation and counts, UTF-16LE/BE -> UTF-8 with UTF-16 validation and
 counts, forgiving base64 decode and encode, UTF-8 <-> UTF-32 with UTF-32
-validation and lengths, and the rest of the transcode matrix (UTF-16LE/BE
-<-> UTF-32, Latin-1 <-> UTF-8/16/32). Nothing of the JAX package or of
+validation and lengths, the rest of the transcode matrix (UTF-16LE/BE
+<-> UTF-32, Latin-1 <-> UTF-8/16/32), and the utilities (ASCII
+validation, the UTF-16 utilities, encoding detection, trim_partial, the
+valid-only converters on invalid input, the capacity-limited base64
+decode). Nothing of the JAX package or of
 jax is imported. Every path runs at its full depth: the whole run takes a
 few minutes of the 20-minute limit. Phases, each fatal on failure:
   1. device  - name, compute capability (must be 9.0), nvidia-smi power limit;
@@ -54,6 +57,17 @@ few minutes of the 20-minute limit. Phases, each fatal on failure:
                UTF-8/16/32 encodings, against CPython's codecs, with a lone
                surrogate, a 0x110000 word and a 3-byte character injected
                at known positions;
+     parityu and sliceu do the same for the utilities: ascii_first_bad,
+               utf16_to_well_formed and detect_encodings, compose16 without
+               its clamp and compose8's valid-only mode, on the UTF-8,
+               UTF-16 and UTF-32 parity inputs (the valid-only converters'
+               invalid edges among them); then the api on the corpus: ASCII
+               validation (and on a 64 MiB ASCII buffer), to_well_formed on
+               its UTF-16 units with lone surrogates injected, detection and
+               autodetection of its UTF-8, UTF-16LE and UTF-32LE forms with
+               and without a BOM, trim_partial, the endianness swap, the
+               valid-only converters, and the safe base64 decode of the
+               MIME corpus, against numpy and CPython's codecs and base64;
   5. times   - device-resident kernels and the routed calls against their
                plain versions, with CUDA events, the device-to-device copy
                rate, and a torch.profiler breakdown of each routed call.
@@ -89,6 +103,7 @@ PASSES32 = ("utf32_first_bad", "utf32_count", "utf8_to_utf32_compose",
             "utf32_to_utf8_compose")
 PASSESX = ("utf16_to_utf32_compose", "utf32_to_utf16_compose",
            "latin1_to_utf8_compose")
+PASSESU = ("ascii_first_bad", "utf16_to_well_formed", "detect_encodings")
 KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
     "census_utf8": ("simdutf_tpu_torch/csrc/census.cu",
                     "simdutf_tpu/kernels/census.py:204", []),
@@ -137,6 +152,12 @@ KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
     "latin1_to_utf8_compose": ("simdutf_tpu_torch/csrc/composex.cu",
                                "simdutf_tpu/kernels/butterflyx.py:122",
                                ["simdutf_tpu/kernels/butterfly16.py:335"]),
+    "ascii_first_bad": ("simdutf_tpu_torch/csrc/validate.cu",
+                        "simdutf_tpu/kernels/validate.py:457", []),
+    "utf16_to_well_formed": ("simdutf_tpu_torch/csrc/utf16.cu",
+                             "simdutf_tpu/kernels/utf16_kernels.py:157", []),
+    "detect_encodings": ("simdutf_tpu_torch/csrc/detect.cu",
+                         "simdutf_tpu/kernels/detect_kernel.py:99", []),
 }
 #: HBM rate of one H100 SXM (NVIDIA's data sheet, at the 700 W limit): the
 #: bound of these kernels, which all stream their bytes
@@ -249,6 +270,9 @@ def parity_cases(big: int):
     cases.append(("err@len-1", mixed[:9_999] + b"\xc3"))
     cases.append(("cut4@len", mixed[:9_000] + "🙂".encode()[:3]))
     cases.append(("lead4@len-1", mixed[:8_191] + b"\xf0"))
+    # the valid-only converters' edges: a truncated lead, 0xFF mid-buffer
+    cases.append(("truncated-e6", b"\xe6"))
+    cases.append(("a-ff-b", b"a\xffb"))
     # random mixtures of every class with invalid sequences
     for t in range(40):
         size = int(rng.integers(1, 70_000))
@@ -315,6 +339,11 @@ def parity16_cases(big: int):
     # length-1 whose low is stored at length (the buffer holds the pair)
     cases.append(("pair@2047", _u16("x" * 2047 + "\U0001f642" + "é" * 3000)))
     cases.append(("hi@len-1", _u16("ab é" * 999 + "\U0001f642")))
+    # the valid-only converters' edges: a high pairs with whatever follows
+    # it (0 past the length), a lone low writes nothing
+    cases.append(("d83d", np.array([0xD83D], np.uint16)))
+    cases.append(("a-dc00-b", np.array([0x61, 0xDC00, 0x62], np.uint16)))
+    cases.append(("a-d800-b", np.array([0x61, 0xD800, 0x62], np.uint16)))
     # random mixtures of every class with lone surrogates
     alphabet = ["a", " ", "é", "Ж", "東", "\U0001f642", "\U0010ffff"]
     for t in range(30):
@@ -1177,6 +1206,224 @@ def slicex_phase(device, big: int = CORPUS_BYTES) -> dict:
     return launches
 
 
+def well_formed_np(units):
+    """numpy reference of to_well_formed on native units: a high surrogate
+    not followed by a low one, or a low one not preceded by a high one,
+    becomes U+FFFD."""
+    import numpy as np
+
+    hi = (units & 0xFC00) == 0xD800
+    lo = (units & 0xFC00) == 0xDC00
+    next_lo = np.append(lo[1:], False)
+    prev_hi = np.insert(hi[:-1], 0, False)
+    return np.where((hi & ~next_lo) | (lo & ~prev_hi), 0xFFFD, units).astype(np.uint16)
+
+
+def parityu_phase(device, big: int = CORPUS_BYTES) -> dict:
+    """The utilities' kernels against their plain versions on ``device``:
+    ascii_first_bad, detect_encodings and compose16 without its clamp on
+    the UTF-8 parity inputs (plus a 64 MiB ASCII buffer with and without a
+    high byte), detect_encodings on the UTF-16LE and UTF-32LE bytes of the
+    UTF-16 and UTF-32 parity inputs, utf16_to_well_formed and compose8's
+    valid-only mode on the UTF-16 ones (LE and BE); returns the largest
+    error seen per kernel (all must be 0), the compose modes under their
+    kernels' names."""
+    import numpy as np
+    import torch
+
+    from simdutf_tpu_torch.kernels import compose8 as kc8
+    from simdutf_tpu_torch.kernels import compose16 as kc
+    from simdutf_tpu_torch.kernels import detect_kernel as kdet
+    from simdutf_tpu_torch.kernels import utf16_kernels as k16
+    from simdutf_tpu_torch.kernels import validate as kv
+
+    def record(k, what, kern, plain):
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        e = _max_err(kern, plain)
+        errs[k] = max(errs[k], e)
+        check(e == 0, f"parity {k} on {what}: max abs err {e}")
+
+    errs = dict.fromkeys(PASSESU + ("utf8_to_utf16_compose", "utf16_to_utf8_compose"), 0)
+    cases8 = parity_cases(big)
+    high_end = bytearray(b"a" * big)
+    high_end[-1] = 0xC3
+    cases8 += [("ascii-64MiB", b"a" * big, big + 8, False),
+               ("ascii-64MiB-high@end", bytes(high_end), big + 8, True)]
+    for name, data, n, garbage in cases8:
+        L = len(data)
+        buf = np.zeros(n, np.uint8)
+        buf[:L] = np.frombuffer(data, np.uint8)
+        if garbage:
+            buf[L:] = np.random.default_rng(L).integers(0, 256, n - L)
+        x = torch.from_numpy(buf).to(device)
+        what = f"{name} (n={n}, length={L})"
+        record("ascii_first_bad", what,
+               (kv.ascii_first_bad(x, L), kv.ascii_first_bad(x, n)),
+               (kv.ascii_first_bad_ref(x, L), kv.ascii_first_bad_ref(x, n)))
+        record("detect_encodings", what, kdet.detect_fused(x, L), kdet.detect_fused_ref(x, L))
+        if not name.startswith("ascii-64MiB"):
+            for be in (False, True):
+                record("utf8_to_utf16_compose", f"{what}, unclamped, be={be}",
+                       kc.to_utf16_compose(x, L, be, clamp=False),
+                       kc.to_utf16_compose_ref(x, L, be, clamp=False))
+    cases16 = parity16_cases(big)
+    for name, units, n, garbage in cases16:
+        L = len(units)
+        buf = _units_buffer(name, units, n, garbage)
+        for be in (False, True):
+            stored = buf.byteswap() if be else buf
+            w = torch.from_numpy(stored.view(np.int16)).to(device).view(torch.uint16)
+            what = f"{name} (n={n}, length={L}, be={be})"
+            record("utf16_to_well_formed", what, k16.utf16_to_well_formed(w, L, be),
+                   k16.utf16_to_well_formed_ref(w, L, be))
+            record("utf16_to_utf8_compose", f"{what}, valid-only",
+                   kc8.to_utf8_compose(w, L, be, mode="valid"),
+                   kc8.to_utf8_compose_ref(w, L, be, mode="valid"))
+        b = torch.from_numpy(buf.view(np.uint8)).to(device)
+        record("detect_encodings", f"{name} as UTF-16LE bytes", kdet.detect_fused(b, 2 * L),
+               kdet.detect_fused_ref(b, 2 * L))
+        record("detect_encodings", f"{name} as UTF-16LE bytes, odd length",
+               kdet.detect_fused(b, max(2 * L - 1, 0)), kdet.detect_fused_ref(b, max(2 * L - 1, 0)))
+    cases32 = parity32_cases(big)
+    for name, words, n, garbage in cases32:
+        L = len(words)
+        b = torch.from_numpy(_words_buffer(name, words, n, garbage).view(np.uint8)).to(device)
+        for length in (4 * L, 4 * L - 3 if L else 0):
+            record("detect_encodings", f"{name} as UTF-32LE bytes, length {length}",
+                   kdet.detect_fused(b, length), kdet.detect_fused_ref(b, length))
+    log(f"parityu: {len(cases8)} byte buffers, {len(cases16)} unit buffers (LE and BE) and "
+        f"{len(cases32)} word buffers, ascii_first_bad, utf16_to_well_formed, "
+        f"detect_encodings, compose16 unclamped and compose8 valid-only bit-identical "
+        f"to their plain versions")
+    return errs
+
+
+def sliceu_phase(device, big: int = CORPUS_BYTES) -> dict:
+    """The port's utilities api on ``device`` at full size; returns the
+    launch count of each utilities kernel during the main-path calls."""
+    import base64
+
+    import numpy as np
+
+    import bench
+
+    from simdutf_tpu_torch import api as su
+    from simdutf_tpu_torch.encodings import encoding_type as et
+    from simdutf_tpu_torch.errors import error_code as ec
+    from simdutf_tpu_torch.kernels import _build
+
+    su.use_device(device)
+    data = bench.mixed_corpus(big)
+    text = data.decode("utf-8")
+    le, be, w32 = text.encode("utf-16-le"), text.encode("utf-16-be"), text.encode("utf-32-le")
+    units = np.frombuffer(le, np.uint16)
+    first_high = int(np.flatnonzero(np.frombuffer(data, np.uint8) >= 0x80)[0])
+    # lone surrogates at known places, each over a unit that is no
+    # surrogate: a low after no high, a high before no low, a high at the end
+    bad = units.copy()
+    k_lo = len(bad) // 5
+    while (bad[k_lo - 1] & 0xFC00) == 0xD800 or (bad[k_lo] & 0xF800) == 0xD800:
+        k_lo += 1
+    bad[k_lo] = 0xDC00
+    k_hi = len(bad) * 3 // 5
+    while (bad[k_hi] & 0xF800) == 0xD800 or (bad[k_hi + 1] & 0xFC00) == 0xDC00:
+        k_hi += 1
+    bad[k_hi] = 0xD800
+    k_end = len(bad) - 1
+    while (bad[k_end] & 0xF800) == 0xD800:
+        k_end -= 1
+    bad = bad[:k_end + 1]
+    bad[k_end] = 0xDBFF
+    want_wf = well_formed_np(bad)
+    check(np.flatnonzero(want_wf != bad).tolist() == [k_lo, k_hi, k_end],
+          "three lone surrogates injected")
+
+    def codec_ok(d: bytes, codec: str) -> bool:
+        try:
+            d.decode(codec)
+            return True
+        except UnicodeDecodeError:
+            return False
+
+    codecs = ("utf-8", "utf-16-le", "utf-32-le")
+    flag = {"utf-8": et.UTF8, "utf-16-le": et.UTF16_LE, "utf-32-le": et.UTF32_LE}
+
+    def detected(d: bytes) -> int:
+        return sum(int(flag[c]) for c in codecs if codec_ok(d, c))
+
+    _build.reset_launches()
+    asc = su.validate_ascii_with_errors(data)
+    wf = su.to_well_formed_utf16le(bad.tobytes())
+    det = su.detect_encodings(data)
+    v16 = su.convert_valid_utf8_to_utf16le(data)
+    v8 = su.convert_valid_utf16le_to_utf8(le)
+    launches = dict(_build.LAUNCHES)
+
+    check((asc.error, asc.count) == (ec.TOO_LARGE, first_high),
+          f"validate_ascii_with_errors {asc}, first byte >= 0x80 at {first_high}")
+    check(wf == want_wf.tobytes(), "to_well_formed_utf16le differs from numpy")
+    check(det == detected(data), f"detect_encodings of the corpus: {det}")
+    check(v16 == le and v8 == data, "valid-only converters differ from codecs")
+    for k in PASSESU + ("utf8_to_utf16_compose", "utf16_to_utf8_compose"):
+        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the main path")
+    log(f"sliceu: {len(data)} B corpus: validate_ascii ({asc.error.name}, {asc.count}); "
+        f"to_well_formed of {len(bad)} units with 3 lone surrogates = numpy; "
+        f"detect_encodings {det}; valid-only converters = codecs; launches {launches}")
+
+    ascii_buf = bytearray(class_corpus("a", big))
+    check(su.validate_ascii_with_errors(bytes(ascii_buf)) == (ec.SUCCESS, big)
+          and su.validate_ascii(bytes(ascii_buf)), "64 MiB ASCII buffer")
+    ascii_buf[-1] = 0x80
+    check(su.validate_ascii_with_errors(bytes(ascii_buf)) == (ec.TOO_LARGE, big - 1),
+          "64 MiB ASCII buffer with 0x80 at its end")
+    check(su.to_well_formed_utf16be(bad.byteswap().tobytes()) == want_wf.byteswap().tobytes()
+          and su.to_well_formed_utf16le(le) == le, "to_well_formed_utf16be / valid input")
+    check(su.change_endianness_utf16(le) == units.byteswap().tobytes() == be,
+          "change_endianness_utf16 differs from numpy's byteswap")
+
+    boms = {"utf-8": b"\xef\xbb\xbf", "utf-16-le": b"\xff\xfe", "utf-32-le": b"\xff\xfe\x00\x00"}
+    for codec, d in zip(codecs, (data, le, w32)):
+        want = detected(d)
+        # the first encoding that decodes (UTF-32LE text with no surrogate
+        # in its low halves is valid UTF-16LE too)
+        first = next((flag[c] for c in codecs if codec_ok(d, c)), et.unspecified)
+        got, auto = su.detect_encodings(d), su.autodetect_encoding(d)
+        check(got == want and want & int(flag[codec]) and auto == first,
+              f"{codec}: detect {got} (codecs {want}), autodetect {auto!r} ({first!r})")
+        with_bom = boms[codec] + d
+        check(su.detect_encodings(with_bom) == int(flag[codec])
+              and su.autodetect_encoding(with_bom) == flag[codec], f"{codec} with its BOM")
+    log("sliceu: detect_encodings and autodetect_encoding of the corpus as UTF-8, UTF-16LE "
+        "and UTF-32LE, with and without a BOM, equal to codecs")
+
+    k = len(data) * 2 // 3
+    while data[k] & 0xC0 != 0x80:  # cut inside a character
+        k += 1
+    lead = k - 1
+    while data[lead] & 0xC0 == 0x80:
+        lead -= 1
+    check(su.trim_partial_utf8(data[:k]) == lead and su.trim_partial_utf8(data) == len(data),
+          f"trim_partial_utf8 of the corpus cut at {k}")
+    hi = int(np.flatnonzero((units & 0xFC00) == 0xD800)[len(units) // 1000])
+    check(su.trim_partial_utf16le(units[:hi + 1].tobytes()) == hi
+          and su.trim_partial_utf16be(units[:hi + 1].byteswap().tobytes()) == hi,
+          "trim_partial_utf16 after a high surrogate")
+
+    raw, mime = mime_corpus(big)
+    top = su.maximal_binary_length_from_base64(mime)
+    res, out = su.base64_to_binary_safe(mime, top)
+    check(res.error == ec.SUCCESS and res.count == len(mime)
+          and out == base64.b64decode(mime) == raw, f"base64_to_binary_safe of the MIME corpus {res}")
+    small = base64.b64encode(raw[:1000])
+    res, out = su.base64_to_binary_safe(small, 500)
+    check(res.error == ec.OUTPUT_BUFFER_TOO_SMALL and out == raw[:498]
+          and res.count == 664, f"base64_to_binary_safe below the maximal length: {res}")
+    log(f"sliceu: trim_partial at a cut character, the endianness swap, and the safe decode of "
+        f"{len(mime)} MIME chars (capacity {top}) equal to CPython's base64")
+    return launches
+
+
 def cuda_ms(fn, iters: int = 10, trials: int = 7) -> float:
     """Median over trials of the mean time of ``iters`` calls, by CUDA
     events, after one warm-up call."""
@@ -1469,6 +1716,59 @@ def timesx_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict]:
     return ms, moved
 
 
+def timesu_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dict]:
+    """ms of each utilities kernel and of its plain version at its path's
+    shapes: ascii_first_bad on a 64 MiB ASCII buffer (every byte read),
+    with ``torch.amax`` over the same bytes as the library yardstick (it
+    gives only the yes/no half); utf16_to_well_formed on the corpus's
+    UTF-16LE units in their 64 Mi-unit bucket; detect_encodings on the
+    64 MiB corpus and on its UTF-32LE bytes; a torch.profiler breakdown of
+    each, for the device time under the wrappers' host pace."""
+    import numpy as np
+    import torch
+
+    import bench
+    from simdutf_tpu_torch import impl
+    from simdutf_tpu_torch.kernels import detect_kernel as kdet
+    from simdutf_tpu_torch.kernels import utf16_kernels as k16
+    from simdutf_tpu_torch.kernels import validate as kv
+
+    data = bench.mixed_corpus(big)
+    text = data.decode("utf-8")
+    a, A = impl.to_device(*impl._pad(np.frombuffer(class_corpus("a", big), np.uint8)), "cuda")
+    x, L = impl.to_device(*impl._pad(np.frombuffer(data, np.uint8)), "cuda")
+    w, U = impl.to_device(*impl._pad(np.frombuffer(text.encode("utf-16-le"), np.uint16)), "cuda")
+    b32, B = impl.to_device(*impl._pad(np.frombuffer(text.encode("utf-32-le"), np.uint8)), "cuda")
+    torch.cuda.synchronize()
+    ms = _time_pairs({
+        "ascii_first_bad": (lambda: kv.ascii_first_bad(a, A), lambda: kv.ascii_first_bad_ref(a, A)),
+    }, A, card)
+    library = {"ascii_first_bad": cuda_ms(lambda: torch.amax(a[:A]))}
+    log(f"time library torch.amax over the {A} B ASCII buffer: "
+        f"{library['ascii_first_bad']:.4f} ms [{card}]")
+    ms.update(_time_pairs({
+        "utf16_to_well_formed": (lambda: k16.utf16_to_well_formed(w, U, False),
+                                 lambda: k16.utf16_to_well_formed_ref(w, U, False)),
+    }, 2 * U, card))
+    ms.update(_time_pairs({
+        "detect_encodings": (lambda: kdet.detect_fused(x, L), lambda: kdet.detect_fused_ref(x, L)),
+    }, L, card))
+    _time_pairs({
+        f"detect_encodings (UTF-32LE bytes, {B} B)": (lambda: kdet.detect_fused(b32, B),
+                                                      lambda: kdet.detect_fused_ref(b32, B)),
+    }, B, card)
+    breakdown(lambda: kv.ascii_first_bad(a, A), f"ascii_first_bad ({A} B ASCII)", card)
+    breakdown(lambda: k16.utf16_to_well_formed(w, U, False),
+              f"utf16_to_well_formed ({U} units, {w.numel()}-unit bucket)", card)
+    breakdown(lambda: kdet.detect_fused(x, L), f"detect_encodings ({L} B corpus)", card)
+    breakdown(lambda: kdet.detect_fused(b32, B), f"detect_encodings ({B} B UTF-32LE)", card)
+    log(f"bytes: ascii_first_bad {A}, utf16_to_well_formed {4 * w.numel()}, "
+        f"detect_encodings {L} (UTF-32LE form {B})")
+    moved = {"ascii_first_bad": A, "utf16_to_well_formed": 4 * w.numel(),
+             "detect_encodings": L}
+    return ms, moved, library
+
+
 def breakdown(fn, what: str, card: str, iters: int = 20) -> None:
     """Device time per call of each kernel ``fn`` runs, and the device's
     busy share of the window, from torch.profiler."""
@@ -1524,12 +1824,18 @@ def main() -> int:
         launches32 = slice32_phase("cuda")
         errs.update(parityx_phase("cuda"))
         launchesx = slicex_phase("cuda")
+        for k, e in parityu_phase("cuda").items():
+            errs[k] = max(errs.get(k, 0), e)
+        launchesu = sliceu_phase("cuda")
         rate = copy_phase(card)
         ms, moved = times_phase(card)
         for phase in (times64_phase, times32_phase, timesx_phase):
             more_ms, more_moved = phase(card)
             ms.update(more_ms)
             moved.update(more_moved)
+        more_ms, more_moved, library = timesu_phase(card)
+        ms.update(more_ms)
+        moved.update(more_moved)
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "simdutf_tpu"))
         check(not loaded, f"jax or the JAX package was imported: {loaded}")
@@ -1537,7 +1843,8 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     paths = ((launches8, PASSES), (launches16, PASSES16),
-             (launches64, PASSES64), (launches32, PASSES32), (launchesx, PASSESX))
+             (launches64, PASSES64), (launches32, PASSES32), (launchesx, PASSESX),
+             (launchesu, PASSESU))
     launches = {k: got[k] for got, path in paths for k in path}
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
@@ -1546,7 +1853,7 @@ def main() -> int:
          "ms": ms[k][0], "plain_ms": ms[k][1],
          "bytes": moved[k], "bound_ms": moved[k] / PEAK_BYTES_PER_S * 1e3,
          "bound_by": "bytes", "copy_bound_ms": moved[k] / rate * 1e3,
-         "library_ms": None}
+         "library_ms": library.get(k)}
         for _, path in paths for k in path
     ]
     print(json.dumps({"kernels": kernels}))

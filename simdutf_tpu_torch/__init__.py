@@ -1,10 +1,11 @@
 """simdutf_tpu_torch: the PyTorch + CUDA (NVIDIA Hopper) port of simdutf_tpu.
 
-It serves four slices: the validating UTF-8 -> UTF-16LE/BE path with exact
-first-error validation and the UTF-8 counts, the validating UTF-16LE/BE ->
-UTF-8 path with the UTF-16 validation and counts, the validating UTF-8 <->
-UTF-32 paths with the UTF-32 validation and lengths, and forgiving base64
-decode (uint8 and char16 input) and encode. Its kernels are hand-written
+It serves every function of the JAX package's api: ASCII, UTF-8, UTF-16
+and UTF-32 validation with the exact first error, counts and lengths, the
+validating and valid transcode matrix over UTF-8, UTF-16LE/BE, UTF-32 and
+Latin-1, the UTF-16 utilities (endianness swap, ``to_well_formed``),
+``trim_partial``, encoding detection, and forgiving base64 decode (uint8
+and char16 input, capacity-limited too) and encode. Its kernels are hand-written
 CUDA C++ for sm_90a (``csrc/``), built with nvcc at first use; every
 kernel has a plain torch version beside it, which is what runs for a
 tensor on the CPU. The package stands alone: it imports neither jax nor
@@ -21,6 +22,11 @@ names and contracts of the JAX package's api::
 from __future__ import annotations
 
 from . import api
+from .encodings import (bom_byte_size, check_bom, encoding_type, endianness,
+                        match_system, to_string)
+from .errors import FullResult, Result, error_code
 from .impl import TorchImplementation
 
-__all__ = ["TorchImplementation", "api"]
+__all__ = ["FullResult", "Result", "TorchImplementation", "api", "bom_byte_size",
+           "check_bom", "encoding_type", "endianness", "error_code", "match_system",
+           "to_string"]

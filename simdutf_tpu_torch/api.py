@@ -1,6 +1,7 @@
 """The port's public entry points: free functions with the names, arguments
-and return contracts of simdutf_tpu/api.py, for the surface the port
-computes.
+and return contracts of simdutf_tpu/api.py, every one of them but the JAX
+package's tier registry (whose job :func:`use_device` and
+:func:`get_implementation` do here).
 
 Conventions (those of the JAX package's api):
   * inputs are bytes-like or numpy arrays (uint8/uint16/uint32);
@@ -28,6 +29,7 @@ import numpy as np
 
 from . import base64_host as _bh
 from .buffers import as_u8, as_u16, as_u32
+from .encodings import bom_byte_size, check_bom, encoding_type, endianness, match_system  # noqa: F401
 from .errors import FullResult, Result, error_code  # noqa: F401
 from .impl import TorchImplementation
 
@@ -98,6 +100,14 @@ def _into(out_arr: np.ndarray, produced: np.ndarray) -> int:
 
 # ---------------------------------------------------------------------------
 # validation
+
+
+def validate_ascii(data) -> bool:
+    return _impl().validate_ascii(as_u8(data))
+
+
+def validate_ascii_with_errors(data) -> Result:
+    return _impl().validate_ascii_with_errors(as_u8(data))
 
 
 def validate_utf8(data) -> bool:
@@ -526,6 +536,54 @@ def convert_latin1_to_utf32(data) -> bytes:
 
 
 # ---------------------------------------------------------------------------
+# UTF-16 utilities
+
+
+def change_endianness_utf16(data) -> bytes:
+    return _out_bytes(_impl().change_endianness_utf16(as_u16(data)))
+
+
+def to_well_formed_utf16le(data) -> bytes:
+    return _out_bytes(_impl().to_well_formed_utf16le(as_u16(data)))
+
+
+def to_well_formed_utf16be(data) -> bytes:
+    return _out_bytes(_impl().to_well_formed_utf16be(as_u16(data)))
+
+
+def to_well_formed_utf16(data) -> bytes:
+    return to_well_formed_utf16le(data) if _NATIVE_LE else to_well_formed_utf16be(data)
+
+
+def trim_partial_utf8(data) -> int:
+    return _impl().trim_partial_utf8(as_u8(data))
+
+
+def trim_partial_utf16le(data) -> int:
+    return _impl().trim_partial_utf16le(as_u16(data))
+
+
+def trim_partial_utf16be(data) -> int:
+    return _impl().trim_partial_utf16be(as_u16(data))
+
+
+def trim_partial_utf16(data) -> int:
+    return trim_partial_utf16le(data) if _NATIVE_LE else trim_partial_utf16be(data)
+
+
+# ---------------------------------------------------------------------------
+# encoding detection
+
+
+def autodetect_encoding(data) -> encoding_type:
+    return _impl().autodetect_encoding(as_u8(data))
+
+
+def detect_encodings(data) -> int:
+    return _impl().detect_encodings(as_u8(data))
+
+
+# ---------------------------------------------------------------------------
 # C-style *_into variants: write into a caller-provided numpy buffer and
 # return the unit count (0 on error)
 
@@ -604,3 +662,31 @@ def base64_to_binary_details(data, options: int = base64_default,
 
 def binary_to_base64(data, options: int = base64_default) -> bytes:
     return _out_bytes(_impl().binary_to_base64(as_u8(data), options))
+
+
+def base64_to_binary_safe(data, capacity: int, options: int = base64_default,
+                          last_chunk_handling: int = loose,
+                          decode_up_to_bad_char: bool = False):
+    """Capacity-limited decode honoring ``capacity`` output bytes: returns
+    (Result, bytes). On OUTPUT_BUFFER_TOO_SMALL, ``Result.count`` is the
+    number of input characters processed, so callers can resume."""
+    res, out = _impl().base64_to_binary_safe(
+        _b64_src(data), capacity, options, last_chunk_handling,
+        decode_up_to_bad_char)
+    return res, _out_bytes(out)
+
+
+def atomic_base64_to_binary_safe(data, capacity: int, options: int = base64_default,
+                                 last_chunk_handling: int = loose,
+                                 decode_up_to_bad_char: bool = False):
+    """Alias of :func:`base64_to_binary_safe`: the reference's ``atomic_``
+    variants guard against races on the caller's raw buffers, and the
+    inputs here are copied into buffers the port owns."""
+    return base64_to_binary_safe(data, capacity, options, last_chunk_handling,
+                                 decode_up_to_bad_char)
+
+
+def atomic_binary_to_base64(data, options: int = base64_default) -> bytes:
+    """Alias of :func:`binary_to_base64` (see
+    :func:`atomic_base64_to_binary_safe`)."""
+    return binary_to_base64(data, options)

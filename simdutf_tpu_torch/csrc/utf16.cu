@@ -3,6 +3,8 @@
 // simdutf_tpu/kernels/utf16_kernels.utf16_first_bad).
 // utf16_count: length-masked counts (replaces _count16_kernel behind
 // utf16_kernels.utf16_reduce): code points, or UTF-8 bytes.
+// utf16_to_well_formed: every lone surrogate below the length replaced by
+// U+FFFD (replaces _wf_kernel behind utf16_kernels.utf16_to_well_formed).
 //
 // Floor: HBM bytes, one streaming read of 2 * `length` bytes each. The TPU
 // kernels carry the running result in an output block across a sequential
@@ -67,6 +69,48 @@ __global__ void __launch_bounds__(256)
   if ((threadIdx.x & 31) == 0 && total) atomicAdd(out, total);
 }
 
+// Elementwise over the whole n-unit buffer, 8 units per thread with the
+// one-unit halo each side: in-range units are read in native order (zero
+// at/after the length, so a high at length-1 has no partner), a lone one
+// becomes U+FFFD in the buffer's byte order and every other unit, those
+// at/after the length included, keeps its stored value. Floor: HBM bytes,
+// one read and one write of 2n bytes, in 16-byte loads and stores.
+__global__ void __launch_bounds__(256)
+    well_formed_kernel(const uint16_t* __restrict__ w, long long n,
+                       long long length, int be, uint16_t* __restrict__ out) {
+  const bool vec = su::aligned16(w) && su::aligned16(out);
+  const int fffd = be ? 0xFDFF : 0xFFFD;
+  const long long chunks = (n + 7) / 8;
+  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       k < chunks; k += (long long)gridDim.x * blockDim.x) {
+    const long long p0 = k * 8;
+    int raw[8];
+    su::load_units8(w, p0, n, vec, false, raw);
+    int u[10];  // native units at p0 - 1 .. p0 + 8, zero outside [0, length)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      u[1 + j] = p0 + j < length ? (be ? su::bswap16(raw[j]) : raw[j]) : 0;
+    const int prv = p0 >= 1 && p0 - 1 < length ? w[p0 - 1] : 0;
+    const int nxt = p0 + 8 < length ? w[p0 + 8] : 0;
+    u[0] = be ? su::bswap16(prv) : prv;
+    u[9] = be ? su::bswap16(nxt) : nxt;
+    int o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      o[j] = p0 + j < length && su::lone(u[j], u[1 + j], u[2 + j]) ? fffd : raw[j];
+    if (vec && p0 + 8 <= n) {
+      uint4 m;
+      m.x = (uint32_t)o[0] | ((uint32_t)o[1] << 16);
+      m.y = (uint32_t)o[2] | ((uint32_t)o[3] << 16);
+      m.z = (uint32_t)o[4] | ((uint32_t)o[5] << 16);
+      m.w = (uint32_t)o[6] | ((uint32_t)o[7] << 16);
+      *reinterpret_cast<uint4*>(out + p0) = m;
+    } else {
+      for (int j = 0; j < 8 && p0 + j < n; ++j) out[p0 + j] = (uint16_t)o[j];
+    }
+  }
+}
+
 }  // namespace
 
 // out: one int64 on the device set to BIG. Returns cudaGetLastError().
@@ -82,5 +126,14 @@ extern "C" int utf16_count(const uint16_t* w, long long length, int be,
                            int mode, unsigned long long* out, void* stream) {
   count_kernel<<<su::grid_for((length + 7) / 8), 256, 0,
                  (cudaStream_t)stream>>>(w, length, be, mode, out);
+  return (int)cudaGetLastError();
+}
+
+// out: n units. Returns cudaGetLastError().
+extern "C" int utf16_to_well_formed(const uint16_t* w, long long n,
+                                    long long length, int be, uint16_t* out,
+                                    void* stream) {
+  well_formed_kernel<<<su::grid_for((n + 7) / 8), 256, 0,
+                       (cudaStream_t)stream>>>(w, n, length, be, out);
   return (int)cudaGetLastError();
 }

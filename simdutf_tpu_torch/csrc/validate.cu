@@ -4,6 +4,10 @@
 // utf8_count: length-masked counts (replaces _count_kernel behind
 // validate.utf8_count / utf8_utf16_length / latin1_utf8_length).
 //
+// ascii_first_bad: the first byte >= 0x80 below a length (replaces the
+// Pallas kernel _ascii_kernel behind validate.ascii_first_bad, which takes
+// no length and relies on the zero tail of its padded layout).
+//
 // Floor: HBM bytes, one streaming read of `length` bytes each (the count
 // reaches it; the first-event lattice is bound by per-byte work). The TPU
 // kernels carry the running minimum in an output block across a
@@ -42,6 +46,52 @@ __global__ void __launch_bounds__(256)
   }
   key = su::warp_min_u64(key);
   if ((threadIdx.x & 31) == 0 && key != su::NO_EVENT) atomicMin(out, key);
+}
+
+// Each warp walks 32 consecutive 16-byte chunks per step, all lanes in
+// step: a ballot finds the warp's first chunk with a byte >= 0x80, whose
+// lowest such byte is then the warp's answer (later steps lie further on),
+// so the warp makes one atomicMin and stops. A warp also stops once a
+// result below its next step is already in *out.
+__global__ void __launch_bounds__(256)
+    ascii_kernel(const uint8_t* __restrict__ b, long long length,
+                 unsigned long long* __restrict__ out) {
+  const bool vec = (reinterpret_cast<uintptr_t>(b) & 15) == 0;
+  const long long chunks = (length + 15) / 16;
+  const int lane = threadIdx.x & 31;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long base = blockIdx.x * (long long)blockDim.x + threadIdx.x - lane;
+       base < chunks; base += stride) {
+    // one read, broadcast, so the whole warp leaves together
+    unsigned long long found =
+        lane == 0 ? *reinterpret_cast<volatile unsigned long long*>(out) : 0;
+    found = __shfl_sync(su::FULL, found, 0);
+    if ((unsigned long long)(base * 16) > found) break;
+    const long long k = base + lane;
+    const long long p0 = k * 16;
+    int first = 16;  // lowest byte >= 0x80 in this lane's chunk; 16: none
+    if (k < chunks) {
+      if (vec && p0 + 16 <= length) {
+        const uint4 m = *reinterpret_cast<const uint4*>(b + p0);
+        const uint32_t w[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+        for (int i = 3; i >= 0; --i) {
+          const uint32_t high = w[i] & 0x80808080u;
+          if (high) first = 4 * i + ((__ffs(high) - 1) >> 3);
+        }
+      } else {
+        for (int j = 15; j >= 0; --j)
+          if (p0 + j < length && b[p0 + j] >= 0x80) first = j;
+      }
+    }
+    const unsigned hits = __ballot_sync(su::FULL, first < 16);
+    if (hits) {
+      const int src = __ffs(hits) - 1;
+      const int f = __shfl_sync(su::FULL, first, src);
+      if (lane == 0) atomicMin(out, (unsigned long long)((base + src) * 16 + f));
+      break;
+    }
+  }
 }
 
 // per-byte count of the three modes
@@ -96,6 +146,14 @@ extern "C" int utf8_first_event(const uint8_t* b, long long length,
                                 unsigned long long* out_key, void* stream) {
   first_event_kernel<<<su::grid_for((length + 15) / 16), 256, 0,
                        (cudaStream_t)stream>>>(b, length, out_key);
+  return (int)cudaGetLastError();
+}
+
+// out: one int64 on the device set to BIG. Returns cudaGetLastError().
+extern "C" int ascii_first_bad(const uint8_t* b, long long length,
+                               unsigned long long* out, void* stream) {
+  ascii_kernel<<<su::grid_for((length + 15) / 16), 256, 0,
+                 (cudaStream_t)stream>>>(b, length, out);
   return (int)cudaGetLastError();
 }
 

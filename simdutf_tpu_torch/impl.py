@@ -1,6 +1,9 @@
 """TorchImplementation: host glue around the torch ops (port of
-simdutf_tpu/ops/impl.py for the slices the port serves: the transcode
-matrix over UTF-8, UTF-16LE/BE, UTF-32 and Latin-1, and forgiving base64).
+simdutf_tpu/ops/impl.py, with the host methods that its XLAImplementation
+inherits from simdutf_tpu/implementation.py: validation and counts, the
+transcode matrix over ASCII, UTF-8, UTF-16LE/BE, UTF-32 and Latin-1, the
+UTF-16 utilities, trim_partial, encoding detection, and forgiving base64
+with its capacity-limited decode).
 
 Inputs are padded to the JAX package's buckets (power of two >= 1 Ki
 elements with 8 slack elements, 16 Mi steps above 64 Mi; elements are
@@ -18,9 +21,12 @@ import torch
 
 from . import base64_host as bh
 from . import runtime
+from . import trim_host as th
+from .encodings import check_bom, encoding_type
 from .errors import Result, error_code as ec
 from .kernels import validate as kv
 from .ops import base64_ops as ob
+from .ops import detect as odet
 from .ops import latin1 as ol1
 from .ops import utf8 as o8
 from .ops import utf16 as o16
@@ -98,13 +104,15 @@ def _valid(out_total, cut) -> np.ndarray:
 
 
 class TorchImplementation:
-    """The validating and valid transcodes between UTF-8, UTF-16LE/BE,
-    UTF-32 and Latin-1 (the twelve directions of the JAX package's normal
-    tier), with validation and counts, and forgiving base64 decode
-    (uint8 and char16 input, every option and last-chunk mode) and
-    encode, on torch tensors on one explicit device: Hopper kernels on a
-    CUDA device of compute capability 9.0, their plain torch versions on
-    the CPU. Nothing falls back to another implementation."""
+    """Every method of the JAX package's normal tier: the validating and
+    valid transcodes between UTF-8, UTF-16LE/BE, UTF-32 and Latin-1, with
+    ASCII, UTF-8, UTF-16 and UTF-32 validation and counts, the UTF-16
+    utilities, trim_partial, encoding detection, and forgiving base64
+    decode (uint8 and char16 input, every option and last-chunk mode,
+    capacity-limited too) and encode, on torch tensors on one explicit
+    device: Hopper kernels on a CUDA device of compute capability 9.0,
+    their plain torch versions on the CPU. Nothing falls back to another
+    implementation."""
 
     name = "torch"
     description = "PyTorch ops + hand-written Hopper kernels (CUDA sm_90a)"
@@ -130,6 +138,13 @@ class TorchImplementation:
         return to_device(*_pad(arr), self.device)
 
     # -- validation ----------------------------------------------------------
+    def validate_ascii(self, b):
+        return self.validate_ascii_with_errors(b).is_ok
+
+    def validate_ascii_with_errors(self, b):
+        code, pos = o8.validate_ascii_with_errors(*self._stage(b))
+        return _res(*torch.stack([code, pos]).tolist())
+
     def validate_utf8(self, b):
         return self.validate_utf8_with_errors(b).is_ok
 
@@ -327,6 +342,59 @@ class TorchImplementation:
     def utf32_length_from_latin1(self, length: int) -> int:
         return length
 
+    # -- UTF-16 utilities ----------------------------------------------------
+    def change_endianness_utf16(self, w):
+        x, n = self._stage(w)
+        return _cut(o16.change_endianness(x), n)
+
+    def to_well_formed_utf16le(self, w):
+        x, n = self._stage(w)
+        return _cut(o16.to_well_formed(x, n, False), n)
+
+    def to_well_formed_utf16be(self, w):
+        x, n = self._stage(w)
+        return _cut(o16.to_well_formed(x, n, True), n)
+
+    def trim_partial_utf8(self, b) -> int:
+        return th.trim_partial_utf8(b)
+
+    def trim_partial_utf16le(self, w) -> int:
+        return th.trim_partial_utf16(w, big_endian=False)
+
+    def trim_partial_utf16be(self, w) -> int:
+        return th.trim_partial_utf16(w, big_endian=True)
+
+    # -- encoding detection --------------------------------------------------
+    def autodetect_encoding(self, b) -> encoding_type:
+        """The BOM, else the first of UTF-8, UTF-16LE and UTF-32LE that
+        validates (src/implementation.cpp:44-76)."""
+        bom = check_bom(b[:4].tobytes())
+        if bom != encoding_type.unspecified:
+            return bom
+        n = int(b.shape[0])
+        if self.validate_utf8(b):
+            return encoding_type.UTF8
+        if n % 2 == 0 and self.validate_utf16le(b.view(np.uint16)):
+            return encoding_type.UTF16_LE
+        if n % 4 == 0 and self.validate_utf32(b.view(np.uint32)):
+            return encoding_type.UTF32_LE
+        return encoding_type.unspecified
+
+    def detect_encodings(self, b) -> int:
+        """The BOM's encoding, else the bit set of the encodings that
+        validate, from one launch of the detect kernel."""
+        bom = check_bom(b[:4].tobytes())
+        if bom != encoding_type.unspecified:
+            return int(bom)
+        n = int(b.shape[0])
+        ok8, ok16, ok32 = torch.stack(odet.detect_encodings(*self._stage(b))).tolist()
+        out = int(encoding_type.UTF8) if ok8 else 0
+        if n % 2 == 0 and ok16:
+            out |= int(encoding_type.UTF16_LE)
+        if n % 4 == 0 and ok32:
+            out |= int(encoding_type.UTF32_LE)
+        return out
+
     # -- base64 --------------------------------------------------------------
     def maximal_binary_length_from_base64(self, src) -> int:
         return bh.maximal_binary_length(src)
@@ -371,3 +439,14 @@ class TorchImplementation:
                      nfull // 3 * 4)
         tail = bh.encode_tail(src[nfull:], options)
         return np.concatenate([body, tail])
+
+    def base64_to_binary_safe(self, src, capacity: int, options: int = 0,
+                              last_chunk: int = bh.LOOSE,
+                              decode_up_to_bad_char: bool = False):
+        """Capacity-limited decode (implementation.h:3090-3208): returns
+        (Result, out) with len(out) <= capacity. With enough capacity it
+        is one :meth:`base64_to_binary_details` call; below the maximal
+        length it is the host loop of base64_host, as in the JAX package."""
+        return bh.decode_safe(src, capacity, options, last_chunk,
+                              decode_up_to_bad_char,
+                              details_fn=self.base64_to_binary_details)

@@ -39,13 +39,15 @@ SIGNATURES = {
     "census_utf8": (_P, _I64, _I64, _P, _P),
     "utf8_first_event": (_P, _I64, _P, _P),
     "utf8_count": (_P, _I64, _I32, _P, _P),
+    "ascii_first_bad": (_P, _I64, _P, _P),
     "compose16_count": (_P, _I64, _I64, _I32, _P, _P, _P, _P),
     "compose16_emit": (_P, _I64, _I64, _I32, _I32, _P, _P, _P, _P),
     "census_utf16": (_P, _I64, _I32, _P, _P),
     "utf16_first_bad": (_P, _I64, _I32, _P, _P),
     "utf16_count": (_P, _I64, _I32, _I32, _P, _P),
-    "compose8_count": (_P, _I64, _I32, _I32, _P, _P, _P, _P),
-    "compose8_emit": (_P, _I64, _I32, _I32, _P, _P, _P, _P),
+    "utf16_to_well_formed": (_P, _I64, _I64, _I32, _P, _P),
+    "compose8_count": (_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P),
+    "compose8_emit": (_P, _I64, _I32, _I32, _I32, _P, _P, _I64, _P, _P),
     "b64_compact8_count": (_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P),
     "b64_compact16_count": (_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P),
     "b64_compact8_emit": (_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P),
@@ -64,6 +66,7 @@ SIGNATURES = {
     "u16_to_u32_emit": (_P, _I64, _I32, _I32, _P, _P, _P),
     "u32_to_u16_count": (_P, _I64, _I32, _P, _P, _P, _P),
     "u32_to_u16_emit": (_P, _I64, _I32, _I32, _P, _P, _P),
+    "detect_encodings": (_P, _I64, _P, _P, _P),
 }
 
 #: kernel launches per wrapper name since the last :func:`reset_launches`

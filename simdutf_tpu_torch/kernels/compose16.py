@@ -28,17 +28,19 @@ from ..ops.common import BIG, tile_glue, to_u16
 TILE = 4096  # bytes per block; = TILE in csrc/compose16.cu
 
 
-def to_utf16_compose_ref(b: torch.Tensor, length: int, big_endian: bool):
+def to_utf16_compose_ref(b: torch.Tensor, length: int, big_endian: bool,
+                         clamp: bool = True):
     """Plain version (ops/utf8's classify -> scan -> scatter engine), in
     the compose contract. See :func:`to_utf16_compose`."""
     from ..ops import utf8 as o8
 
     err_pos, err_code, out, total, err_len = o8._utf16_general_parts(
-        b, length, big_endian)
+        b, length, big_endian, clamp)
     return to_u16(out), total, err_pos != BIG, err_pos, err_code, err_len
 
 
-def to_utf16_compose(b: torch.Tensor, length: int, big_endian: bool):
+def to_utf16_compose(b: torch.Tensor, length: int, big_endian: bool,
+                     clamp: bool = True):
     """Transcode ``b[:length]`` to UTF-16 (byte-swapped units when
     ``big_endian``). Returns (out uint16[N], total, err_any, err_pos,
     err_code, err_len), the scalars as 0-d tensors on ``b``'s device:
@@ -47,10 +49,13 @@ def to_utf16_compose(b: torch.Tensor, length: int, big_endian: bool):
     * ``err_pos``/``err_code``: the exact first error (BIG and 0 if none);
     * ``err_len``: units of the valid prefix before the error (0 if none).
 
-    ``out`` is zero at/after ``err_len`` on error and ``total`` if valid."""
+    With ``clamp``, ``out`` is zero at/after ``err_len`` on error and
+    ``total`` if valid. Without it (the valid-only converters), every
+    in-range lead writes its mechanically decoded unit(s), past the first
+    error too, as the JAX package's ``to_utf16_valid`` does."""
     length = int(length)
     if _build.check_bytes(b, length) == "cpu":
-        return to_utf16_compose_ref(b, length, big_endian)
+        return to_utf16_compose_ref(b, length, big_endian, clamp)
     n = b.shape[0]
     dev = b.device
     out = torch.zeros(n, dtype=torch.int16, device=dev).view(torch.uint16)
@@ -68,7 +73,7 @@ def to_utf16_compose(b: torch.Tensor, length: int, big_endian: bool):
         counts, keys, prefix)
 
     _build.call("compose16_emit", b.data_ptr(), n, length, nt,
-                int(big_endian), off.data_ptr(), out_len.data_ptr(),
-                out.data_ptr())
+                int(big_endian), off.data_ptr(),
+                (out_len if clamp else total).data_ptr(), out.data_ptr())
     _build.count_launch("utf8_to_utf16_compose")
     return out, total, err_any, err_pos, err_code, err_len

@@ -1,18 +1,20 @@
-"""UTF-16 first-error and count kernels.
+"""UTF-16 first-error, count and well-formed kernels.
 
 Port of simdutf_tpu/kernels/utf16_kernels.py: ``utf16_first_bad`` (Pallas
-``_utf16_kernel``) and ``utf16_reduce`` (``_count16_kernel``, modes
-"count" and "utf8len"). On a CUDA tensor the wrappers launch
-``utf16_first_bad`` / ``utf16_count`` (csrc/utf16.cu); on a CPU tensor
-they run the plain versions beside them.
+``_utf16_kernel``), ``utf16_reduce`` (``_count16_kernel``, modes "count"
+and "utf8len") and ``utf16_to_well_formed`` (``_wf_kernel``). On a CUDA
+tensor the wrappers launch ``utf16_first_bad`` / ``utf16_count`` /
+``utf16_to_well_formed`` (csrc/utf16.cu); on a CPU tensor they run the
+plain versions beside them.
 
-Both Hopper kernels are streaming reads of the in-range units, so their
-floor is HBM bytes; each warp reduces its threads and makes one atomic
-update. Inputs are flat 1-D uint16 tensors with a length in units: the
-TPU's (64 + R + 64, 256) layout with zero tiles fore and aft is not
-needed, and the first-bad kernel takes the length where the Pallas kernel
-relies on that zero padding, so a unit stored at ``length`` never pairs
-with a high surrogate at ``length - 1``.
+The first-bad and count kernels are streaming reads of the in-range
+units, the well-formed kernel a read and a write of the whole buffer, so
+their floor is HBM bytes; the reductions make one atomic update per warp.
+Inputs are flat 1-D uint16 tensors with a length in units: the TPU's
+(64 + R + 64, 256) layout with zero tiles fore and aft is not needed, and
+the kernels take the length where the Pallas kernels rely on that zero
+padding, so a unit stored at ``length`` never pairs with a high surrogate
+at ``length - 1``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ..ops.common import BIG, bswap16, positions, units_i32
+from ..ops.common import BIG, bswap16, positions, to_u16, units_i32
 
 _MODES = {"count": 0, "utf8len": 1}
 
@@ -81,3 +83,30 @@ def utf16_reduce(w: torch.Tensor, length: int, be: bool, what: str) -> torch.Ten
                 out.data_ptr())
     _build.count_launch("utf16_count")
     return out[0]
+
+
+def utf16_to_well_formed_ref(w: torch.Tensor, length: int, be: bool) -> torch.Tensor:
+    """Plain version (the JAX package's ``ops/utf16.to_well_formed``): see
+    :func:`utf16_to_well_formed`."""
+    from ..ops import utf16 as o16
+
+    bad = o16.lone_surrogates(o16._native16(w, be), length)
+    return to_u16(torch.where(bad, 0xFDFF if be else 0xFFFD, units_i32(w)))
+
+
+def utf16_to_well_formed(w: torch.Tensor, length: int, be: bool) -> torch.Tensor:
+    """``w`` (units byte-swapped when ``be``) with every lone surrogate of
+    ``w[:length]`` (a high one not followed by a low one below the
+    length, or a low one not preceded by a high one) replaced by U+FFFD in
+    the same byte order, as a new uint16 tensor of ``w``'s size on ``w``'s
+    device; units at/after ``length`` keep their stored value."""
+    length = int(length)
+    if _build.check_units(w, length) == "cpu":
+        return utf16_to_well_formed_ref(w, length, be)
+    n = w.shape[0]
+    out = torch.empty(n, dtype=torch.int16, device=w.device).view(torch.uint16)
+    if n:
+        _build.call("utf16_to_well_formed", w.data_ptr(), n, length, int(be),
+                    out.data_ptr())
+        _build.count_launch("utf16_to_well_formed")
+    return out

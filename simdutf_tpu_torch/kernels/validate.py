@@ -1,12 +1,13 @@
-"""UTF-8 and UTF-32 first-error and count kernels.
+"""UTF-8, ASCII and UTF-32 first-error and count kernels.
 
 Port of simdutf_tpu/kernels/validate.py: ``utf8_first_event_len`` and
-``utf8_first_event`` (Pallas ``_utf8_kernel_len`` / ``_utf8_kernel``), the
-``_count_call`` family (``_count_kernel``: ``utf8_count``,
-``utf8_utf16_length``, ``latin1_utf8_length``), ``utf32_first_bad``
-(``_utf32_validate_kernel``) and ``utf32_count`` (``_utf32_len_kernel``,
-the JAX ``utf32_reduce``). On a CUDA tensor the wrappers launch
-``utf8_first_event`` / ``utf8_count`` (csrc/validate.cu) or
+``utf8_first_event`` (Pallas ``_utf8_kernel_len`` / ``_utf8_kernel``),
+``ascii_first_bad`` (``_ascii_kernel``), the ``_count_call`` family
+(``_count_kernel``: ``utf8_count``, ``utf8_utf16_length``,
+``latin1_utf8_length``), ``utf32_first_bad`` (``_utf32_validate_kernel``)
+and ``utf32_count`` (``_utf32_len_kernel``, the JAX ``utf32_reduce``). On
+a CUDA tensor the wrappers launch ``utf8_first_event`` /
+``ascii_first_bad`` / ``utf8_count`` (csrc/validate.cu) or
 ``utf32_first_bad`` / ``utf32_count`` (csrc/utf32.cu); on a CPU tensor
 they run the plain versions beside them.
 
@@ -56,6 +57,31 @@ def utf8_first_event_len(b: torch.Tensor, length: int):
 def utf8_first_event(b: torch.Tensor):
     """:func:`utf8_first_event_len` over the whole buffer."""
     return utf8_first_event_len(b, b.shape[0])
+
+
+def ascii_first_bad_ref(b: torch.Tensor, length: int) -> torch.Tensor:
+    """Plain version: the least index ``< length`` of a byte >= 0x80, as a
+    0-d int64 tensor, BIG when there is none."""
+    if b.numel() == 0:
+        return torch.full((), BIG, dtype=torch.int64, device=b.device)
+    idx = positions(b.shape[0], b.device)
+    bad = (b >= 0x80) & (idx < length)
+    return torch.where(bad, idx, torch.full_like(idx, BIG)).min()
+
+
+def ascii_first_bad(b: torch.Tensor, length: int) -> torch.Tensor:
+    """The first position of ``b[:length]`` whose byte is >= 0x80, as a
+    0-d int64 tensor on ``b``'s device; BIG when every byte is ASCII.
+    Bytes at/after ``length`` are ignored (the Pallas kernel takes no
+    length and relies on a zero tail)."""
+    length = int(length)
+    if _build.check_bytes(b, length) == "cpu":
+        return ascii_first_bad_ref(b, length)
+    out = torch.full((1,), BIG, dtype=torch.int64, device=b.device)
+    if length:
+        _build.call("ascii_first_bad", b.data_ptr(), length, out.data_ptr())
+        _build.count_launch("ascii_first_bad")
+    return out[0]
 
 
 def count_ref(b: torch.Tensor, length: int, what: str) -> torch.Tensor:

@@ -32,6 +32,7 @@ from .common import (
     scatter_writes,
     shift_left,
     shift_right,
+    to_u16,
     units_i32,
     zero_tail,
 )
@@ -53,18 +54,24 @@ def native(w: torch.Tensor, length: int, big_endian: bool) -> torch.Tensor:
     return zero_tail(_native16(w, big_endian), length)
 
 
+def lone_surrogates(wn: torch.Tensor, length: int) -> torch.Tensor:
+    """Mask of the lone surrogates among native units ``wn[:length]``: a
+    high one not followed by a low one below the length, or a low one not
+    preceded by a high one."""
+    in_r = positions(wn.shape[0], wn.device) < length
+    is_high = ((wn & 0xFC00) == 0xD800) & in_r
+    is_low = ((wn & 0xFC00) == 0xDC00) & in_r
+    return (is_high & ~shift_left(is_low, 1)) | (is_low & ~shift_right(is_high, 1))
+
+
 def first_error(wn: torch.Tensor, length: int) -> torch.Tensor:
-    """Position of the first lone surrogate of native units ``wn`` (tail
-    zeroed) as a 0-d int64 tensor; BIG when valid."""
+    """Position of the first lone surrogate of native units ``wn`` as a
+    0-d int64 tensor; BIG when valid."""
     n = wn.shape[0]
     if n == 0:
         return scalar(BIG, wn.device)
     idx = positions(n, wn.device)
-    in_r = idx < length
-    is_high = ((wn & 0xFC00) == 0xD800) & in_r
-    is_low = ((wn & 0xFC00) == 0xDC00) & in_r
-    bad = (is_high & ~shift_left(is_low, 1)) | (is_low & ~shift_right(is_high, 1))
-    return torch.where(bad, idx, torch.full_like(idx, BIG)).min()
+    return torch.where(lone_surrogates(wn, length), idx, torch.full_like(idx, BIG)).min()
 
 
 def validate_with_errors(w: torch.Tensor, length: int, big_endian: bool):
@@ -171,6 +178,43 @@ def _utf8_general_parts(w: torch.Tensor, length: int, big_endian: bool):
     return err_pos, err_code, out.to(torch.uint8), total, err_len
 
 
+def _utf8_valid_parts(w: torch.Tensor, length: int, big_endian: bool):
+    """The plain valid-only engine (the JAX package's ``_codepoints``,
+    ``_utf8_widths`` and ``_emit_utf8`` of ``to_utf8_valid``), and the
+    compose kernel's valid-mode plain version: every in-range unit that is
+    not a low surrogate starts a code point, a high surrogate's made with
+    the next unit whatever it is (0 at/after the length), and writes its
+    1-4 bytes; bytes past the 3n-byte buffer are dropped. Returns (out
+    uint8[3n], total)."""
+    n = w.shape[0]
+    dev = w.device
+    x = native(w, length, big_endian)
+    in_r = positions(n, dev) < length
+    hi = ((x & 0xFC00) == 0xD800) & in_r
+    start = ((x & 0xFC00) != 0xDC00) & in_r
+    cp = torch.where(hi, ((x - 0xD800) << 10) + (shift_left(x, 1) - 0xDC00) + 0x10000, x)
+    width = start.to(torch.int64) * (1 + (cp > 0x7F).to(torch.int64)
+                                     + (cp > 0x7FF) + (cp > 0xFFFF))
+    off, inc = excl_scan(width)
+    total = inc[n - 1] if n else scalar(0, dev)
+    z = torch.zeros_like(cp)
+    w1, w2, w3, w4 = width == 1, width == 2, width == 3, width == 4
+    b0 = torch.where(w1, cp, z)
+    b0 = torch.where(w2, (cp >> 6) | 0xC0, b0)
+    b0 = torch.where(w3, (cp >> 12) | 0xE0, b0)
+    b0 = torch.where(w4, (cp >> 18) | 0xF0, b0)
+    b1 = torch.where(w2, (cp & 0x3F) | 0x80, z)
+    b1 = torch.where(w3, ((cp >> 6) & 0x3F) | 0x80, b1)
+    b1 = torch.where(w4, ((cp >> 12) & 0x3F) | 0x80, b1)
+    b2 = torch.where(w3, (cp & 0x3F) | 0x80, z)
+    b2 = torch.where(w4, ((cp >> 6) & 0x3F) | 0x80, b2)
+    b3 = (cp & 0x3F) | 0x80
+    cap = 3 * n
+    out = scatter_writes(cap, [(start & (width > k) & (off + k < cap), off + k, v)
+                               for k, v in enumerate((b0, b1, b2, b3))], dev)
+    return (out & 0xFF).to(torch.uint8), total
+
+
 def _general_utf8(w: torch.Tensor, length: int, big_endian: bool):
     """Mixed input: the compose kernel (kernels/compose8) at every buffer
     size. Its output is already zero at/after the valid-prefix end.
@@ -211,7 +255,9 @@ def to_utf8(w: torch.Tensor, length: int, big_endian: bool):
 
 def to_utf8_valid(w: torch.Tensor, length: int, big_endian: bool):
     """convert_valid_utf16*_to_utf8: assumes valid input. Returns
-    (out uint8[3N], out_len), census-routed like :func:`to_utf8`."""
+    (out uint8[3N], out_len), census-routed like :func:`to_utf8`; all other
+    input takes the compose kernel's valid-only mode, which gives the JAX
+    package's output on invalid input too."""
     n = w.shape[0]
     dev = w.device
     ascii_, u2r, _, astral = census(w, length, big_endian)
@@ -225,8 +271,21 @@ def to_utf8_valid(w: torch.Tensor, length: int, big_endian: bool):
 
     return route(
         [(p, wrap(br)) for p, br in zip((ascii_, u2r, astral), fast)],
-        lambda: kc8.to_utf8_compose(w, length, big_endian)[:2],
+        lambda: kc8.to_utf8_compose(w, length, big_endian, mode="valid")[:2],
     )
+
+
+def change_endianness(w: torch.Tensor) -> torch.Tensor:
+    """Every unit of the buffer byte-swapped (uint16[N]). A torch byte swap
+    on the buffer's device: the JAX package has no kernel here either."""
+    return to_u16(bswap16(units_i32(w)))
+
+
+def to_well_formed(w: torch.Tensor, length: int, big_endian: bool) -> torch.Tensor:
+    """Every lone surrogate of ``w[:length]`` replaced by U+FFFD in the
+    buffer's byte order; units at/after ``length`` keep their stored value
+    (uint16[N]). One launch of kernels/utf16_kernels.utf16_to_well_formed."""
+    return k16.utf16_to_well_formed(w, length, big_endian)
 
 
 def census32(w: torch.Tensor, length: int, big_endian: bool):

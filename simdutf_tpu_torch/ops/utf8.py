@@ -126,6 +126,15 @@ def _first_error_from(cls: dict, length: int):
     return err_pos, err_code
 
 
+def validate_ascii_with_errors(b: torch.Tensor, length: int):
+    """-> (err_code, err_pos): TOO_LARGE at the first in-range byte >= 0x80,
+    else (0, length). One pass of kernels/validate.ascii_first_bad."""
+    pos = kv.ascii_first_bad(b, length)
+    ok = pos == BIG
+    return (torch.where(ok, 0, _TOO_LARGE).to(torch.int64),
+            torch.where(ok, torch.full_like(pos, length), pos))
+
+
 def validate_with_errors(b: torch.Tensor, length: int):
     """-> (err_code, err_pos); (0, length) on success. One pass of the
     first-event kernel (kernels/validate.utf8_first_event_len)."""
@@ -237,12 +246,14 @@ def _emit_utf16_units(cp, lead, lead4, n: int, big_endian: bool):
     return out, off, total
 
 
-def _utf16_general_parts(b: torch.Tensor, length: int, big_endian: bool):
+def _utf16_general_parts(b: torch.Tensor, length: int, big_endian: bool,
+                         clamp: bool = True):
     """The plain mixed-script engine, classify -> scan -> scatter (the JAX
-    package's ``_to_utf16_general``), and the compose kernel's plain
-    version. Returns (err_pos, err_code, out int32[n] zeroed at/after
-    out_len, total, err_len): err_pos == BIG when valid, total counts
-    every unit, err_len the units before err_pos."""
+    package's ``_to_utf16_general``, and without ``clamp`` its
+    ``to_utf16_valid`` engine), and the compose kernel's plain version.
+    Returns (err_pos, err_code, out int32[n], total, err_len): err_pos ==
+    BIG when valid, total counts every unit, err_len the units before
+    err_pos; with ``clamp`` out is zeroed at/after out_len."""
     n = b.shape[0]
     idx = positions(n, b.device)
     cls = classify(b, length)
@@ -252,8 +263,9 @@ def _utf16_general_parts(b: torch.Tensor, length: int, big_endian: bool):
                                         big_endian)
     ok = err_pos == BIG
     err_len = count_before(off, err_pos)
-    out_len = torch.where(ok, total, err_len)
-    out = torch.where(idx < out_len, out, torch.zeros_like(out))
+    if clamp:
+        out_len = torch.where(ok, total, err_len)
+        out = torch.where(idx < out_len, out, torch.zeros_like(out))
     return err_pos, err_code, out, total, err_len
 
 
@@ -301,7 +313,9 @@ def to_utf16(b: torch.Tensor, length: int, big_endian: bool):
 
 def to_utf16_valid(b: torch.Tensor, length: int, big_endian: bool):
     """convert_valid_utf8_to_utf16*: assumes valid input. Returns
-    (out uint16[N], out_len), census-routed like :func:`to_utf16`."""
+    (out uint16[N], out_len), census-routed like :func:`to_utf16`; all
+    other input takes the compose kernel without its clamp, which gives
+    the JAX package's output on invalid input too."""
     n = b.shape[0]
     ascii_, u2, u3, u4, _, _ = census_full(b, length)
     fast = _u16_fast_branches(b, length, n, big_endian)
@@ -314,7 +328,7 @@ def to_utf16_valid(b: torch.Tensor, length: int, big_endian: bool):
         return f
 
     def general():
-        return kc16.to_utf16_compose(b, length, big_endian)[:2]
+        return kc16.to_utf16_compose(b, length, big_endian, clamp=False)[:2]
 
     return route(
         [(p, wrap(br)) for p, br in zip((ascii_, u2, u3, u4), fast)],

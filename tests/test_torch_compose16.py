@@ -5,7 +5,9 @@ engine routes to the scatter form instead).
 
 Same padded buffer and length into both; every element of the contract
 must be equal: the full output buffer (zeros past out_len included),
-total, err_any, err_pos, err_code and err_len. Integer results: exact.
+total, err_any, err_pos, err_code and err_len. Without its clamp (the
+valid-only converters) the compose is held against the JAX package's
+``to_utf16_valid`` engine instead. Integer results: exact.
 """
 
 import numpy as np
@@ -15,6 +17,7 @@ import torch
 import jax.numpy as jnp
 
 from simdutf_tpu.kernels import butterfly as jb
+from simdutf_tpu.ops import utf8 as jo8
 from simdutf_tpu_torch.kernels import compose16 as tc
 
 T = jb.TILE  # 32 KiB butterfly tiles (the port's own tiles are 4 KiB)
@@ -69,3 +72,26 @@ def test_compose_truncated_lead4_keeps_low_unit():
 
 def test_compose_empty_length():
     assert _compare(b"", False)[:2] == [0, 0]
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["truncated_lead", "ff_mid", "cut4"])
+@pytest.mark.parametrize("be", [False, True])
+def test_compose_without_clamp_matches_jax_valid_engine(name, be):
+    """clamp=False (the valid-only converters): every in-range lead's
+    mechanically decoded unit(s), past the first error too, as the JAX
+    package's to_utf16_valid general branch writes them."""
+    data = {"truncated_lead": b"\xe6", "ff_mid": b"a\xffb",
+            "cut4": b"ab\xf0\x90"}.get(name) or CASES[name]
+    buf = np.zeros(max(T, -(-len(data) // T) * T), np.uint8)
+    buf[: len(data)] = np.frombuffer(data, np.uint8)
+    jb8 = jnp.asarray(buf)
+    cls = jo8.classify(jb8, len(data))
+    lead = cls["lead"] & (np.arange(len(buf)) < len(data))
+    want, _, total = jo8._emit_utf16_units(cls["cp"], lead, cls["lead4"], len(buf), be)
+    got = tc.to_utf16_compose(torch.from_numpy(buf), len(data), be, clamp=False)
+    assert np.array_equal(got[0].view(torch.int16).numpy().view(np.uint16),
+                          np.asarray(want).astype(np.uint16))
+    assert int(got[1]) == int(total)
+    # the validating call's scalars are unchanged by the clamp
+    clamped = tc.to_utf16_compose(torch.from_numpy(buf), len(data), be)
+    assert [int(v) for v in got[1:]] == [int(v) for v in clamped[1:]]

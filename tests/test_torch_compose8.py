@@ -9,7 +9,9 @@ storage order with the byte order beside them. Both get one or two
 equal: the full 3N-byte output (zeros past out_len included), total,
 err_any, err_pos, err_code and err_len. ``total`` counts 2 bytes for
 every surrogate, paired or not, so it equals the "utf8len" count on every
-input. Integer results: exact.
+input. The valid-only mode is held against the JAX package's valid-only
+engine (ops/utf16._codepoints / _utf8_widths / _emit_utf8). Integer
+results: exact.
 """
 
 import jax
@@ -149,3 +151,54 @@ def test_tile_glue(err):
     assert off.tolist() == [0, 3, 8]
     want = [10, True, 7, 6, 7, 7] if err else [10, False, BIG, 0, 0, 10]
     assert [int(v) for v in rest] == want
+
+
+def _jax_valid_engine(buf: np.ndarray, length: int, be: bool):
+    """The JAX package's valid-only engine (the general branch of
+    ops/utf16.to_utf8_valid) on native-order units ``buf``."""
+    stored = buf.byteswap() if be else buf
+    w = jo16.native(jnp.asarray(stored), length, be)
+    cp, start = jo16._codepoints(w, length)
+    out, _, total = jo16._emit_utf8(cp, start, jo16._utf8_widths(cp, start), len(buf))
+    return np.asarray(out), int(total)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("be", [False, True])
+def test_valid_mode_matches_jax_valid_engine(name, be):
+    """The valid-only mode: a high pairs with whatever follows it, a lone
+    low writes nothing; full 3N-byte buffer and total, no error reported."""
+    units = CASES[name]
+    n = max(T, -(-len(units) // T) * T)
+    buf = np.zeros(n, np.uint16)
+    buf[: len(units)] = units
+    want_out, want_total = _jax_valid_engine(buf, len(units), be)
+    stored = buf.byteswap() if be else buf
+    w = torch.from_numpy(stored.view(np.int16)).view(torch.uint16)
+    out, total, *err = tc8.to_utf8_compose(w, len(units), be, mode="valid")
+    assert np.array_equal(out.numpy(), want_out)
+    assert int(total) == want_total
+    assert [int(v) for v in err] == [0, 2**31 - 1, 0, 0]
+
+
+@pytest.mark.parametrize("be", [False, True])
+def test_valid_mode_high_at_length_minus_one_pairs_with_zero(be):
+    """A high at length-1 pairs with 0, not with the low stored at the
+    length (the opposite of the UTF-16 -> UTF-32 rerun's partner), and a
+    run of highs asks for more than the 3N-byte buffer holds."""
+    units = _units("ab\U0001f642")
+    stored = units.byteswap() if be else units.copy()
+    w = torch.from_numpy(stored.view(np.int16)).view(torch.uint16)
+    out, total = tc8.to_utf8_compose(w, 3, be, mode="valid")[:2]
+    assert int(total) == 6 and bytes(out.numpy()[:6]) == b"ab\xf0\x91\xa0\x80"  # U+11800
+    highs = np.full(64, 0xDBFF, np.uint16)  # each makes a 4-byte code point
+    w = torch.from_numpy((highs.byteswap() if be else highs).view(np.int16)).view(torch.uint16)
+    out, total = tc8.to_utf8_compose(w, 64, be, mode="valid")[:2]
+    assert int(total) == 4 * 64 and out.shape == (192,)
+    assert np.array_equal(out.numpy(), _jax_valid_engine(highs, 64, False)[0])
+
+
+def test_unknown_mode_raises():
+    with pytest.raises(ValueError):
+        tc8.to_utf8_compose(torch.zeros(4, dtype=torch.int16).view(torch.uint16), 2, False,
+                            mode="lenient")

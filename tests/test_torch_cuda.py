@@ -21,6 +21,7 @@ from simdutf_tpu_torch.kernels import compose8 as kc8
 from simdutf_tpu_torch.kernels import compose16 as kc
 from simdutf_tpu_torch.kernels import compose32 as kc32
 from simdutf_tpu_torch.kernels import composex as kcx
+from simdutf_tpu_torch.kernels import detect_kernel as kdet
 from simdutf_tpu_torch.kernels import utf16_kernels as k16
 from simdutf_tpu_torch.kernels import validate as kv
 from simdutf_tpu_torch.ops import base64_ops as ob
@@ -348,4 +349,73 @@ def test_compose_wrappers_make_no_host_sync(cuda):
             call()
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def _inputs_u():
+    """(name, bytes) for the ASCII and detect kernels and compose16 without
+    its clamp: the UTF-8 inputs, the valid-only converters' invalid edges,
+    ASCII with a high byte at 0, at a 512-byte warp step and at the end, and
+    the UTF-16LE / UTF-32LE forms of mixed text with bad units and words."""
+    text = "ab é 東 \U0001f642 " * 3000
+    u16, u32 = text.encode("utf-16-le"), text.encode("utf-32-le")
+    out = _inputs() + [("e6", b"\xe6"), ("a-ff-b", b"a\xffb"), ("cut4", b"ab\xf0\x90"),
+                       ("ascii", b"x" * 70_000)]
+    for pos in (0, 511, 512, 69_999):
+        out.append((f"ascii-high@{pos}", b"x" * pos + b"\xc3" + b"x" * (69_999 - pos)))
+    out += [("utf16le", u16), ("utf16le-odd", u16 + b"a"), ("utf16le-hi-last", u16[:-2] + b"\x3d\xd8"),
+            ("utf16le-lo-first", b"\x00\xdc" + u16[2:]), ("utf32le", u32), ("utf32le+3", u32 + b"abc"),
+            ("utf32le-top-bit", u32[:4096] + b"\x00\x00\x00\x80" + u32[4100:])]
+    return out
+
+
+@pytest.mark.parametrize("name,data", _inputs_u())
+def test_ascii_detect_and_unclamped_compose16_match_plain_versions(cuda, name, data):
+    n = len(data) + 13  # bytes past the length are garbage
+    buf = np.random.default_rng(n).integers(0, 256, n).astype(np.uint8)
+    buf[: len(data)] = np.frombuffer(data, np.uint8)
+    x, L = torch.from_numpy(buf).to(cuda), len(data)
+    for length in (L, n):
+        assert _same(kv.ascii_first_bad(x, length), kv.ascii_first_bad_ref(x, length))
+        assert _same(kdet.detect_fused(x, length), kdet.detect_fused_ref(x, length))
+    for be in (False, True):
+        assert _same(kc.to_utf16_compose(x, L, be, clamp=False),
+                     kc.to_utf16_compose_ref(x, L, be, clamp=False))
+    if L > 1:  # a view off the 16-byte grid takes the byte loads
+        v = x[3:]
+        assert _same(kv.ascii_first_bad(v, L - 3), kv.ascii_first_bad_ref(v, L - 3))
+        assert _same(kdet.detect_fused(v, L - 3), kdet.detect_fused_ref(v, L - 3))
+    torch.cuda.synchronize()
+
+
+def _inputs16_valid():
+    """The UTF-16 inputs plus the valid-only converters' invalid edges and
+    a run of lone highs longer than the 3N-byte buffer can hold."""
+    return _inputs16() + [
+        ("d83d", np.array([0xD83D], np.uint16).tobytes()),
+        ("a-dc00-b", np.array([0x61, 0xDC00, 0x62], np.uint16).tobytes()),
+        ("a-d800-b", np.array([0x61, 0xD800, 0x62], np.uint16).tobytes()),
+        ("highs", np.full(5000, 0xDBFF, np.uint16).tobytes())]
+
+
+@pytest.mark.parametrize("name,data", _inputs16_valid())
+@pytest.mark.parametrize("be", [False, True])
+def test_well_formed_and_valid_compose8_match_plain_versions(cuda, name, data, be):
+    units = np.frombuffer(data, np.uint16)
+    L = len(units)
+    n = L + (0 if name == "highs" else 13)  # units past the length are garbage
+    buf = np.random.default_rng(n).integers(0, 1 << 16, n).astype(np.uint16)
+    buf[:L] = units.byteswap() if be else units
+    if name == "hi@len-1":
+        buf[L] = 0xDE42 if not be else 0x42DE
+    w = torch.from_numpy(buf.view(np.int16)).to(cuda).view(torch.uint16)
+    assert _same(k16.utf16_to_well_formed(w, L, be), k16.utf16_to_well_formed_ref(w, L, be))
+    assert _same(kc8.to_utf8_compose(w, L, be, mode="valid"),
+                 kc8.to_utf8_compose_ref(w, L, be, mode="valid"))
+    if L > 1:  # a view one unit into its storage takes the unit loads
+        v = w[1:]
+        assert _same(k16.utf16_to_well_formed(v, L - 1, be),
+                     k16.utf16_to_well_formed_ref(v, L - 1, be))
+        assert _same(kc8.to_utf8_compose(v, L - 1, be, mode="valid"),
+                     kc8.to_utf8_compose_ref(v, L - 1, be, mode="valid"))
     torch.cuda.synchronize()

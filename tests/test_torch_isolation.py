@@ -63,13 +63,17 @@ api.use_device("cpu")
 text = "a é 東 \U0001f642 " * 50
 inputs = {"utf8": text.encode(), "utf16le": text.encode("utf-16-le"),
           "utf16be": text.encode("utf-16-be"), "utf16": text.encode("utf-16-le"),
-          "utf32": text.encode("utf-32-le"), "latin1": text.encode()}
+          "utf32": text.encode("utf-32-le"), "latin1": text.encode(),
+          "ascii": b"plain ascii", "encoding": text.encode("utf-16-le"),
+          "encodings": text.encode("utf-32-le")}
 
 def source(name):
     if name.startswith("convert_"):
         return name.split("_to_")[0].split("_")[-1]
     if "_from_" in name:
         return name.split("_from_")[1]
+    if name.startswith(("change_endianness_", "to_well_formed_", "trim_partial_")):
+        return name.split("_")[-1]
     return name.split("_")[1]
 
 called = []
@@ -82,6 +86,9 @@ for name in NAMES:
     elif name in ("latin1_length_from_utf16", "latin1_length_from_utf32",
                   "utf16_length_from_latin1", "utf32_length_from_latin1"):
         assert fn(10) == 10
+    elif name.endswith("base64_to_binary_safe"):
+        res, out = fn(__import__("base64").b64encode(inputs["utf8"]), 64)
+        assert len(out) == 63 and res.error == 10  # OUTPUT_BUFFER_TOO_SMALL
     elif name.endswith("_safe"):
         assert len(fn(inputs[source(name)], 64)) <= 64
     elif "base64" in name:

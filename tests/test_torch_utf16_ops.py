@@ -4,8 +4,10 @@ Same padded unit buffer (storage order, the JAX package's bucket), same
 length and byte order into both packages: the census routing facts, the
 full 3N-byte output of ``to_utf8`` (zeros past out_len included) with its
 error code, position and out_len, and ``to_utf8_valid`` on valid input
-must be equal. The fixed-rate branches (ascii, u2r, astral) and the
-general engine (compose8) are each reached. Integer results: exact.
+must be equal, and so must the full output and total of ``to_utf8_valid``
+on every input, invalid ones included. The fixed-rate branches (ascii,
+u2r, astral) and the general engine (compose8, in its validating and its
+valid-only mode) are each reached. Integer results: exact.
 """
 
 import jax
@@ -44,6 +46,13 @@ CASES = {
     "u2_then_lone_low": _with(_units("é" * 900), 700, 0xDC00),
     "astral_lone_high_at_end": np.concatenate([_units("\U0001f642" * 300), [0xD800]]).astype(np.uint16),
     "mixed_lone_high": _with(_units("ab é 東 \U0001f642 " * 500), 3000, 0xD811),
+    # a high pairs with whatever follows it (0 past the length), a lone low
+    # writes nothing
+    "lone_high_only": np.array([0xD83D], np.uint16),
+    "lone_low_between_ascii": np.array([0x61, 0xDC00, 0x62], np.uint16),
+    "lone_high_between_ascii": np.array([0x61, 0xD800, 0x62], np.uint16),
+    # 4 bytes per unit: more than the 3N-byte buffer holds
+    "lone_highs_run": np.full(4088, 0xDBFF, np.uint16),
 }
 
 
@@ -66,7 +75,7 @@ def test_to_utf8_matches_jax(name, be):
     assert list(to16.census(w, L, be)) == [bool(v) for v in _jcensus(jw16, L)]
 
 
-@pytest.mark.parametrize("name", [k for k in sorted(CASES) if "lone" not in k])
+@pytest.mark.parametrize("name", sorted(CASES))
 @pytest.mark.parametrize("be", [False, True])
 def test_to_utf8_valid_matches_jax(name, be):
     buf, L = _staged(CASES[name], be)
@@ -74,4 +83,4 @@ def test_to_utf8_valid_matches_jax(name, be):
     out, total = _jvalid(jnp.asarray(buf), L, be)
     got, got_total = to16.to_utf8_valid(w, L, be)
     assert int(got_total) == int(total)
-    assert np.array_equal(got.numpy()[: int(total)], np.asarray(out)[: int(total)])
+    assert np.array_equal(got.numpy(), np.asarray(out))

@@ -54,6 +54,12 @@ INPUTS = {
     "overlong": b"ab\xc0\xafcd",
     "surrogate": b"ab\xed\xa0\x80",
     "too_large": b"ab\xf4\x90\x80\x80",
+    # convert_valid on invalid input: the unit of every in-range lead, past
+    # the first error too
+    "valid_only_truncated_lead": b"\xe6",
+    "valid_only_ff_mid": b"a\xffb",
+    "valid_only_cut4_at_end": b"ab\xf0\x90",
+    "valid_only_orphan_cont": b"\x80ab\xbf",
 }
 
 
@@ -102,12 +108,10 @@ def test_census_and_first_error_match_jax(name):
     assert (int(tpos), int(tcode)) == (int(jpos), int(jcode))
 
 
-@pytest.mark.parametrize(
-    "name", [k for k in sorted(INPUTS) if "invalid" not in k and k not in
-             ("start_cont", "cut_at_length", "lead4_last", "overlong",
-              "surrogate", "too_large")])
+@pytest.mark.parametrize("name", sorted(INPUTS))
 @pytest.mark.parametrize("be", [False, True])
 def test_to_utf16_valid_matches_jax(name, be):
+    """Every input, invalid ones included: the same full buffer and length."""
     jb, jn, x, length = _both(INPUTS[name])
     jfn = jimpl._j_u8_to_u16be_v if be else jimpl._j_u8_to_u16le_v
     out, total = jfn(jb, jn)
