@@ -3,16 +3,17 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
-Six paths, each driven through the port's own api
+Seven paths, each driven through the port's own api
 (``simdutf_tpu_torch.api`` on "cuda"): UTF-8 -> UTF-16LE/BE with UTF-8
 validation and counts, UTF-16LE/BE -> UTF-8 with UTF-16 validation and
 counts, forgiving base64 decode and encode, UTF-8 <-> UTF-32 with UTF-32
 validation and lengths, the rest of the transcode matrix (UTF-16LE/BE
-<-> UTF-32, Latin-1 <-> UTF-8/16/32), and the utilities (ASCII
+<-> UTF-32, Latin-1 <-> UTF-8/16/32), the utilities (ASCII
 validation, the UTF-16 utilities, encoding detection, trim_partial, the
 valid-only converters on invalid input, the capacity-limited base64
-decode). Nothing of the JAX package or of
-jax is imported. Every path runs at its full depth: the whole run takes a
+decode), and the fixed-rate class branches of UTF-8 <-> UTF-16 (whole
+ASCII, uniform 2- and 3-byte input, and 4-byte UTF-8 -> UTF-16; Latin-1
+-> UTF-16). Nothing of the JAX package or of jax is imported. Every path runs at its full depth: the whole run takes a
 few minutes of the 20-minute limit. Phases, each fatal on failure:
   1. device  - name, compute capability (must be 9.0), nvidia-smi power limit;
   2. build   - nvcc builds csrc/*.cu (one process per source) into one library;
@@ -68,14 +69,27 @@ few minutes of the 20-minute limit. Phases, each fatal on failure:
                and without a BOM, trim_partial, the endianness swap, the
                valid-only converters, and the safe base64 decode of the
                MIME corpus, against numpy and CPython's codecs and base64;
+     paritytr and slicetr do the same for the fixed-rate kernels: the
+               four UTF-8 -> UTF-16 kernels on every UTF-8 parity input, the
+               three UTF-16 -> UTF-8 kernels on every UTF-16 one (LE and BE),
+               and class text with out-of-class elements at the thread and
+               block steps, output and flag; a census-admitted class must
+               leave its flag clear; then the api on the 64 MiB ASCII, é, 東
+               and 🙂 corpora, UTF-8 -> UTF-16LE/BE and back, validating and
+               valid-only, and Latin-1 -> UTF-16LE/BE, against codecs, each
+               call launching exactly its census and its kernel (🙂 back to
+               UTF-8 only its census: that branch has no kernel);
   5. times   - device-resident kernels and the routed calls against their
                plain versions, with CUDA events, the device-to-device copy
-               rate, and a torch.profiler breakdown of each routed call.
+               rate, the library yardsticks where one PyTorch call computes
+               the same function, and a torch.profiler breakdown of each
+               routed call.
 
 Before the last line it prints one JSON object with every kernel (launches
-on its path, largest error against its plain version, ms, plain ms, and
-``bound_ms``: the bytes it must move over the card's published 3.35 TB/s;
-``copy_bound_ms`` the same bytes at the measured copy rate) and the card's
+on its path, largest error against its plain version, ms, plain ms,
+``library_ms`` or null, and ``bound_ms``: the bytes it must move over the
+card's published 3.35 TB/s; ``copy_bound_ms`` the same bytes at the
+measured copy rate) and the card's
 nvidia-smi name and power limit. The last line of stdout is
 {"ok": true, "device": {...}}; it is printed only when every phase passed.
 Without CUDA, or without the rest of the repo beside it, the script exits
@@ -104,6 +118,13 @@ PASSES32 = ("utf32_first_bad", "utf32_count", "utf8_to_utf32_compose",
 PASSESX = ("utf16_to_utf32_compose", "utf32_to_utf16_compose",
            "latin1_to_utf8_compose")
 PASSESU = ("ascii_first_bad", "utf16_to_well_formed", "detect_encodings")
+#: the fixed-rate class kernels, (name, class char) in the census's class
+#: order: UTF-8 -> UTF-16, then UTF-16 -> UTF-8
+FIXED8 = (("ascii_widen_utf16", "a"), ("uniform2_utf8_to_utf16", "é"),
+          ("uniform3_utf8_to_utf16", "東"), ("astral_utf8_to_utf16", "\U0001f642"))
+FIXED16 = (("ascii_narrow_utf8", "a"), ("uniform2_utf16_to_utf8", "é"),
+           ("uniform3_utf16_to_utf8", "東"))
+PASSEST = tuple(k for k, _ in FIXED8 + FIXED16)
 KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
     "census_utf8": ("simdutf_tpu_torch/csrc/census.cu",
                     "simdutf_tpu/kernels/census.py:204", []),
@@ -158,6 +179,20 @@ KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
                              "simdutf_tpu/kernels/utf16_kernels.py:157", []),
     "detect_encodings": ("simdutf_tpu_torch/csrc/detect.cu",
                          "simdutf_tpu/kernels/detect_kernel.py:99", []),
+    "ascii_widen_utf16": ("simdutf_tpu_torch/csrc/transcode.cu",
+                          "simdutf_tpu/kernels/transcode.py:82", []),
+    "uniform2_utf8_to_utf16": ("simdutf_tpu_torch/csrc/transcode.cu",
+                               "simdutf_tpu/kernels/transcode.py:211", []),
+    "uniform3_utf8_to_utf16": ("simdutf_tpu_torch/csrc/transcode.cu",
+                               "simdutf_tpu/kernels/transcode.py:312", []),
+    "astral_utf8_to_utf16": ("simdutf_tpu_torch/csrc/transcode.cu",
+                             "simdutf_tpu/kernels/transcode.py:1127", []),
+    "ascii_narrow_utf8": ("simdutf_tpu_torch/csrc/transcode.cu",
+                          "simdutf_tpu/kernels/transcode.py:133", []),
+    "uniform2_utf16_to_utf8": ("simdutf_tpu_torch/csrc/transcode.cu",
+                               "simdutf_tpu/kernels/transcode.py:385", []),
+    "uniform3_utf16_to_utf8": ("simdutf_tpu_torch/csrc/transcode.cu",
+                               "simdutf_tpu/kernels/transcode.py:472", []),
 }
 #: HBM rate of one H100 SXM (NVIDIA's data sheet, at the 700 W limit): the
 #: bound of these kernels, which all stream their bytes
@@ -1424,6 +1459,152 @@ def sliceu_phase(device, big: int = CORPUS_BYTES) -> dict:
     return launches
 
 
+def _fixed_injected(big: int):
+    """(name, bytes) of class text with out-of-class bytes at 0, at the
+    kernels' thread and block steps (16 and 48 bytes a thread, 256
+    threads a block) and at length-1, plus a 3- and a 4-byte character
+    cut at the length; and (name, native units) of UTF-16 class text with
+    out-of-class units likewise."""
+    import numpy as np
+
+    size = 100_008
+    out8, out16 = [], []
+    for ch, bad in (("a", 0x80), ("é", 0x41), ("東", 0xC3), ("\U0001f642", 0x41)):
+        base = class_corpus(ch, size)
+        for pos in (0, 15, 16, 47, 4095, 4096, 12_287, 12_288, len(base) - 1):
+            d = bytearray(base)
+            d[pos] = bad
+            out8.append((f"{ch}-{bad:#x}@{pos}", bytes(d)))
+    out8 += [(f"{ch}-cut@len", class_corpus(ch, size)[:-1]) for ch in ("東", "\U0001f642")]
+    for ch, bad in (("a", 0x100), ("é", 0x800), ("東", 0xD800)):
+        base = _u16(ch * size)
+        for pos in (0, 7, 8, 15, 2047, 2048, 4095, 4096, len(base) - 1):
+            d = base.copy()
+            d[pos] = bad
+            out16.append((f"{ch}-{bad:#x}@{pos}", d))
+    return out8, out16
+
+
+def paritytr_phase(device, big: int = CORPUS_BYTES) -> dict:
+    """The seven fixed-rate kernels against their plain versions on
+    ``device``, output and flag bit for bit, LE and BE: the four UTF-8 ->
+    UTF-16 kernels on every UTF-8 parity input and on class text with
+    out-of-class bytes at the thread and block steps, the three UTF-16 ->
+    UTF-8 kernels on every UTF-16 parity input and on class units likewise;
+    a kernel whose class the census admits must leave its flag clear.
+    Returns the largest error seen per kernel (all must be 0)."""
+    import numpy as np
+    import torch
+
+    from simdutf_tpu_torch.kernels import transcode as ktr
+    from simdutf_tpu_torch.ops import utf8 as o8
+    from simdutf_tpu_torch.ops import utf16 as o16
+
+    def record(k, what, kern, plain):
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        e = _max_err(kern, plain)
+        errs[k] = max(errs[k], e)
+        check(e == 0, f"parity {k} on {what}: max abs err {e}")
+
+    errs = dict.fromkeys(PASSEST, 0)
+    inj8, inj16 = _fixed_injected(big)
+    cases8 = parity_cases(big) + [(name, d, len(d) + 13, True) for name, d in inj8]
+    admitted = 0
+    for name, data, n, garbage in cases8:
+        L = len(data)
+        buf = np.zeros(n, np.uint8)
+        if garbage:
+            buf[:] = np.random.default_rng(L).integers(0, 256, n)
+        buf[:L] = np.frombuffer(data, np.uint8)
+        x = torch.from_numpy(buf).to(device)
+        classes = o8.census_full(x, L)[:4]
+        for (k, _), cls in zip(FIXED8, classes):
+            fn, ref = getattr(ktr, k), getattr(ktr, k + "_ref")
+            for be in (False, True):
+                got = fn(x, L, be)
+                record(k, f"{name} (n={n}, length={L}, be={be})", got, ref(x, L, be))
+                check(not cls or int(got[1]) == 0, f"{k} flags {name}, a census class")
+                admitted += cls
+    cases16 = parity16_cases(big) + [(name, u, len(u) + 13, True) for name, u in inj16]
+    for name, units, n, garbage in cases16:
+        L = len(units)
+        buf = _units_buffer(name, units, n, garbage)
+        for be in (False, True):
+            stored = buf.byteswap() if be else buf
+            w = torch.from_numpy(stored.view(np.int16)).to(device).view(torch.uint16)
+            classes = o16.census(w, L, be)[:3]
+            for (k, _), cls in zip(FIXED16, classes):
+                got = getattr(ktr, k)(w, L, be)
+                record(k, f"{name} (n={n}, length={L}, be={be})", got,
+                       getattr(ktr, k + "_ref")(w, L, be))
+                check(not cls or int(got[1]) == 0, f"{k} flags {name}, a census class")
+                admitted += cls
+    log(f"paritytr: {len(cases8)} byte buffers and {len(cases16)} unit buffers (LE and BE), "
+        f"every fixed-rate kernel's output and flag bit-identical to its plain version; "
+        f"flag clear on all {admitted} calls on a census-admitted class")
+    return errs
+
+
+def slicetr_phase(device, big: int = CORPUS_BYTES) -> dict:
+    """The port's api on the 64 MiB ASCII, é, 東 and 🙂 corpora: UTF-8 ->
+    UTF-16LE/BE (validating and valid-only) and their UTF-16LE/BE -> UTF-8,
+    against CPython's codecs, and Latin-1 -> UTF-16LE/BE of the 64 MiB
+    Latin-1 buffer. Each call runs with the counts set to 0 just before it
+    and read just after: a class call must launch exactly its census and
+    its fixed-rate kernel (no compose kernel; the astral UTF-16 -> UTF-8
+    branch, which has no kernel, only its census), the Latin-1 widen
+    exactly the ASCII widen kernel. Returns the launches of each fixed-rate kernel
+    summed over these calls."""
+    from simdutf_tpu_torch import api as su
+    from simdutf_tpu_torch.kernels import _build
+
+    su.use_device(device)
+    total = dict.fromkeys(PASSEST, 0)
+
+    def launched(call, want: dict):
+        _build.reset_launches()
+        got = call()
+        launches = dict(_build.LAUNCHES)
+        check(launches == want, f"launches {launches}, want {want}")
+        for k in PASSEST:
+            total[k] += launches.get(k, 0)
+        return got
+
+    for (k8, ch), k16 in zip(FIXED8, [k for k, _ in FIXED16] + [None]):
+        back = {"census_utf16": 1, k16: 1} if k16 else {"census_utf16": 1}
+        data = class_corpus(ch, big)
+        text = data.decode("utf-8")
+        for be, codec in ((False, "utf-16-le"), (True, "utf-16-be")):
+            want = text.encode(codec)
+            end = "be" if be else "le"
+            res, out = launched(lambda: getattr(su, f"convert_utf8_to_utf16{end}_with_errors")(data),
+                                {"census_utf8": 1, k8: 1})
+            check(res.is_ok and res.count == len(want) // 2 and out == want,
+                  f"{ch} utf8 -> {codec}: {res} differs from codecs")
+            out = launched(lambda: getattr(su, f"convert_valid_utf8_to_utf16{end}")(data),
+                           {"census_utf8": 1, k8: 1})
+            check(out == want, f"{ch} valid utf8 -> {codec} differs from codecs")
+            res, out = launched(lambda: getattr(su, f"convert_utf16{end}_to_utf8_with_errors")(want),
+                                back)
+            check(res.is_ok and res.count == len(data) and out == data,
+                  f"{ch} {codec} -> utf8: {res} differs from the corpus")
+            out = launched(lambda: getattr(su, f"convert_valid_utf16{end}_to_utf8")(want),
+                           back)
+            check(out == data, f"{ch} valid {codec} -> utf8 differs from the corpus")
+        log(f"slicetr: {len(data)} B of {ch!r} -> {len(want) // 2} units LE and BE -> {len(data)} B "
+            f"(validating and valid-only) equal codecs; each call launched census + {k8} / "
+            f"{k16 or 'no kernel'}")
+    lat = latin1_corpus(big)
+    for end, codec in (("le", "utf-16-le"), ("be", "utf-16-be")):
+        out = launched(lambda: getattr(su, f"convert_latin1_to_utf16{end}")(lat),
+                       {"ascii_widen_utf16": 1})
+        check(out == lat.decode("latin-1").encode(codec), f"latin1 -> {codec} differs")
+    log(f"slicetr: {len(lat)} Latin-1 B -> UTF-16LE/BE equal codecs through ascii_widen_utf16; "
+        f"launches {total}")
+    return total
+
+
 def cuda_ms(fn, iters: int = 10, trials: int = 7) -> float:
     """Median over trials of the mean time of ``iters`` calls, by CUDA
     events, after one warm-up call."""
@@ -1769,6 +1950,74 @@ def timesu_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dict]:
     return ms, moved, library
 
 
+def timestr_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dict]:
+    """ms of each fixed-rate kernel and of its plain version at the class
+    calls' shapes: the UTF-8 -> UTF-16 kernels on the 64 MiB ASCII, é, 東
+    and 🙂 corpora in their 64 MiB bucket, the UTF-16 -> UTF-8 kernels on
+    ``big`` units of each class in a 64 Mi-unit bucket, device-resident;
+    the routed class calls against the census's and the branch's plain
+    versions; the library yardsticks ``x.to(torch.int16)`` (the LE widen of
+    ASCII bytes) and ``w.view(torch.int16).to(torch.uint8)`` (the narrow of
+    ASCII units; no PyTorch call computes the uniform classes); a
+    torch.profiler breakdown of each routed class call."""
+    import numpy as np
+    import torch
+
+    from simdutf_tpu_torch import impl
+    from simdutf_tpu_torch.kernels import census as kcen
+    from simdutf_tpu_torch.kernels import transcode as ktr
+    from simdutf_tpu_torch.ops import utf8 as o8
+    from simdutf_tpu_torch.ops import utf16 as o16
+
+    ms, moved, library = {}, {}, {}
+    for k, ch in FIXED8:
+        x, L = impl.to_device(*impl._pad(np.frombuffer(class_corpus(ch, big), np.uint8)), "cuda")
+        torch.cuda.synchronize()
+        fn, ref = getattr(ktr, k), getattr(ktr, k + "_ref")
+
+        def plain_route(x=x, L=L, ref=ref):
+            int(kcen.census_bits_ref(x, L))  # the route's one sync
+            return ref(x, L, False)
+
+        ms.update(_time_pairs({
+            k: (lambda x=x, L=L, fn=fn: fn(x, L, False), lambda x=x, L=L, ref=ref: ref(x, L, False)),
+            f"to_utf16 (ops.utf8, routed, {ch!r} class)": (lambda x=x, L=L: o8.to_utf16(x, L, False),
+                                                            plain_route),
+        }, L, card))
+        breakdown(lambda x=x, L=L: o8.to_utf16(x, L, False),
+                  f"to_utf16 ({ch!r} class, {L} B in a {x.numel()} B bucket)", card)
+        moved[k] = L + 2 * x.numel()
+        if k == "ascii_widen_utf16":
+            library[k] = cuda_ms(lambda x=x: x.to(torch.int16))
+            log(f"time library x.to(torch.int16) over the {x.numel()} B bucket: "
+                f"{library[k]:.4f} ms [{card}]")
+        del x
+    for k, ch in FIXED16:
+        w, U = impl.to_device(*impl._pad(_u16(ch * big)), "cuda")
+        torch.cuda.synchronize()
+        fn, ref = getattr(ktr, k), getattr(ktr, k + "_ref")
+
+        def plain_route(w=w, U=U, ref=ref):
+            int(kcen.census16_bits_ref(w, U, False))  # the route's one sync
+            return ref(w, U, False)
+
+        ms.update(_time_pairs({
+            k: (lambda w=w, U=U, fn=fn: fn(w, U, False), lambda w=w, U=U, ref=ref: ref(w, U, False)),
+            f"to_utf8 (ops.utf16, routed, {ch!r} class)": (lambda w=w, U=U: o16.to_utf8(w, U, False),
+                                                            plain_route),
+        }, 2 * U, card))
+        breakdown(lambda w=w, U=U: o16.to_utf8(w, U, False),
+                  f"to_utf8 ({ch!r} class, {U} units in a {w.numel()}-unit bucket)", card)
+        moved[k] = 2 * U + 3 * w.numel()
+        if k == "ascii_narrow_utf8":
+            library[k] = cuda_ms(lambda w=w: w.view(torch.int16).to(torch.uint8))
+            log(f"time library w.view(torch.int16).to(torch.uint8) over the {w.numel()}-unit "
+                f"bucket: {library[k]:.4f} ms [{card}]")
+        del w
+    log(f"bytes: {moved}")
+    return ms, moved, library
+
+
 def breakdown(fn, what: str, card: str, iters: int = 20) -> None:
     """Device time per call of each kernel ``fn`` runs, and the device's
     busy share of the window, from torch.profiler."""
@@ -1827,6 +2076,8 @@ def main() -> int:
         for k, e in parityu_phase("cuda").items():
             errs[k] = max(errs.get(k, 0), e)
         launchesu = sliceu_phase("cuda")
+        errs.update(paritytr_phase("cuda"))
+        launchest = slicetr_phase("cuda")
         rate = copy_phase(card)
         ms, moved = times_phase(card)
         for phase in (times64_phase, times32_phase, timesx_phase):
@@ -1836,6 +2087,10 @@ def main() -> int:
         more_ms, more_moved, library = timesu_phase(card)
         ms.update(more_ms)
         moved.update(more_moved)
+        more_ms, more_moved, more_library = timestr_phase(card)
+        ms.update(more_ms)
+        moved.update(more_moved)
+        library.update(more_library)
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "simdutf_tpu"))
         check(not loaded, f"jax or the JAX package was imported: {loaded}")
@@ -1844,7 +2099,7 @@ def main() -> int:
         return 1
     paths = ((launches8, PASSES), (launches16, PASSES16),
              (launches64, PASSES64), (launches32, PASSES32), (launchesx, PASSESX),
-             (launchesu, PASSESU))
+             (launchesu, PASSESU), (launchest, PASSEST))
     launches = {k: got[k] for got, path in paths for k in path}
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],

@@ -67,6 +67,13 @@ SIGNATURES = {
     "u32_to_u16_count": (_P, _I64, _I32, _P, _P, _P, _P),
     "u32_to_u16_emit": (_P, _I64, _I32, _I32, _P, _P, _P),
     "detect_encodings": (_P, _I64, _P, _P, _P),
+    "ascii_widen_utf16": (_P, _I64, _I64, _I32, _P, _P, _P),
+    "uniform2_utf8_to_utf16": (_P, _I64, _I64, _I32, _P, _P, _P),
+    "uniform3_utf8_to_utf16": (_P, _I64, _I64, _I32, _P, _P, _P),
+    "astral_utf8_to_utf16": (_P, _I64, _I64, _I32, _P, _P, _P),
+    "ascii_narrow_utf8": (_P, _I64, _I64, _I32, _P, _P, _P),
+    "uniform2_utf16_to_utf8": (_P, _I64, _I64, _I32, _P, _P, _P),
+    "uniform3_utf16_to_utf8": (_P, _I64, _I64, _I32, _P, _P, _P),
 }
 
 #: kernel launches per wrapper name since the last :func:`reset_launches`

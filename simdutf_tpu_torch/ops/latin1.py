@@ -13,9 +13,9 @@ import torch
 
 from ..kernels import census as kcen
 from ..kernels import composex as kcx
+from ..kernels import transcode as ktr
 from ..kernels import validate as kv
-from .common import (bytes_out, excl_scan, positions, route, scalar, scatter_writes,
-                     to_u16)
+from .common import bytes_out, excl_scan, positions, route, scalar, scatter_writes
 
 
 def utf8_length(b: torch.Tensor, length: int) -> torch.Tensor:
@@ -72,9 +72,10 @@ def to_utf8(b: torch.Tensor, length: int):
 
 def to_utf16(b: torch.Tensor, length: int, big_endian: bool) -> torch.Tensor:
     """uint16[N]: every byte of the buffer widened, past ``length`` too (a
-    whole-buffer cast, as in the JAX package)."""
-    w = b.to(torch.int32)
-    return to_u16((w << 8) & 0xFFFF if big_endian else w)
+    whole-buffer widen, as in the JAX package): the ASCII widen kernel
+    (kernels/transcode.ascii_widen_utf16) with the buffer's size as its
+    length and its flag unread, the JAX ``pallas`` tier's own use of it."""
+    return ktr.ascii_widen_utf16(b, b.shape[0], big_endian)[0]
 
 
 def to_utf32(b: torch.Tensor, length: int) -> torch.Tensor:

@@ -19,6 +19,7 @@ from ..errors import error_code as ec
 from ..kernels import census as kcen
 from ..kernels import compose8 as kc8
 from ..kernels import composex as kcx
+from ..kernels import transcode as ktr
 from ..kernels import utf16_kernels as k16
 from .common import (
     BIG,
@@ -106,19 +107,25 @@ def census(w: torch.Tensor, length: int, big_endian: bool):
 
 
 def _u8_fast_branches(w: torch.Tensor, length: int, n: int, big_endian: bool):
-    """The fixed-rate utf16->utf8 branches (ascii, u2r, astral; the
-    uniform-3 class takes the general engine, as in the JAX package); each
+    """The fixed-rate utf16->utf8 branches (ascii, u2r, u3r, astral); each
     returns (out uint8[3n], out_len) bit-identical to the general engine
-    on its class. Plain torch on every device: the JAX package has no
-    Pallas kernel here either."""
+    on its class. The ascii, u2r and u3r branches are the fixed-rate
+    kernels of kernels/transcode (the JAX ``pallas`` tier's
+    ``ascii_narrow_utf8``, ``uniform2_utf16_to_utf8`` and
+    ``uniform3_utf16_to_utf8``; the JAX ``xla`` tier sends the uniform-3
+    class to its general engine, which gives the same bytes); the census
+    has proved the class, so their flag is not read. The astral branch is
+    plain torch on every device: no Pallas kernel computes it either
+    (``astral_wordmap`` has no UTF-16-pair -> UTF-8 variant)."""
 
     def br_ascii():
-        return bytes_out(_native16(w, big_endian), length, 3 * n), length
+        return ktr.ascii_narrow_utf8(w, length, big_endian)[0], length
 
     def br_u2r():
-        x = _native16(w, big_endian)
-        by = torch.stack([(x >> 6) | 0xC0, (x & 0x3F) | 0x80], dim=1)
-        return bytes_out(by.reshape(-1), 2 * length, 3 * n), 2 * length
+        return ktr.uniform2_utf16_to_utf8(w, length, big_endian)[0], 2 * length
+
+    def br_u3r():
+        return ktr.uniform3_utf16_to_utf8(w, length, big_endian)[0], 3 * length
 
     def br_astral():
         pr = _native16(w[: n // 2 * 2], big_endian).view(-1, 2)
@@ -129,7 +136,7 @@ def _u8_fast_branches(w: torch.Tensor, length: int, n: int, big_endian: bool):
                           0x80 | (lo & 0x3F)], dim=1)
         return bytes_out(by.reshape(-1), 2 * length, 3 * n), 2 * length
 
-    return br_ascii, br_u2r, br_astral
+    return br_ascii, br_u2r, br_u3r, br_astral
 
 
 def _utf8_general_parts(w: torch.Tensor, length: int, big_endian: bool):
@@ -229,16 +236,16 @@ def _general_utf8(w: torch.Tensor, length: int, big_endian: bool):
 
 def to_utf8(w: torch.Tensor, length: int, big_endian: bool):
     """Validating transcode, routed on a one-pass census: whole-buffer
-    ASCII, uniform 0x80..0x7FF or astral-pair input takes a fixed-rate
-    branch (the census predicate is its validity proof); all other input,
-    the uniform-3 class included, takes the compose kernel.
+    ASCII, uniform 0x80..0x7FF, uniform 0x800..0xFFFF (no surrogate) or
+    astral-pair input takes a fixed-rate branch (the census predicate is
+    its validity proof); all other input takes the compose kernel.
 
     Returns (err_code, err_pos, out uint8[3N], out_len); on error out_len
     counts the bytes of the valid prefix, and bytes at/after out_len are
     zero."""
     n = w.shape[0]
     dev = w.device
-    ascii_, u2r, _, astral = census(w, length, big_endian)
+    classes = census(w, length, big_endian)
     fast = _u8_fast_branches(w, length, n, big_endian)
 
     def wrap(br):
@@ -248,7 +255,7 @@ def to_utf8(w: torch.Tensor, length: int, big_endian: bool):
         return f
 
     return route(
-        [(p, wrap(br)) for p, br in zip((ascii_, u2r, astral), fast)],
+        [(p, wrap(br)) for p, br in zip(classes, fast)],
         lambda: _general_utf8(w, length, big_endian),
     )
 
@@ -260,7 +267,7 @@ def to_utf8_valid(w: torch.Tensor, length: int, big_endian: bool):
     package's output on invalid input too."""
     n = w.shape[0]
     dev = w.device
-    ascii_, u2r, _, astral = census(w, length, big_endian)
+    classes = census(w, length, big_endian)
     fast = _u8_fast_branches(w, length, n, big_endian)
 
     def wrap(br):
@@ -270,7 +277,7 @@ def to_utf8_valid(w: torch.Tensor, length: int, big_endian: bool):
         return f
 
     return route(
-        [(p, wrap(br)) for p, br in zip((ascii_, u2r, astral), fast)],
+        [(p, wrap(br)) for p, br in zip(classes, fast)],
         lambda: kc8.to_utf8_compose(w, length, big_endian, mode="valid")[:2],
     )
 
@@ -308,7 +315,8 @@ def _u32_fast_branches(w: torch.Tensor, length: int, n: int, big_endian: bool):
     """The fixed-rate utf16->utf32 branches (bmp: a widen; astral: one
     word per pair); each returns (out int32[n], out_len) bit-identical to
     the general engine on its class. Plain torch on every device: the JAX
-    package has no Pallas kernel here either."""
+    ``pallas`` tier's kernels for these classes (``bmp_widen_utf32``,
+    ``astral_wordmap``) are not ported yet."""
 
     def br_bmp():
         return native(w, length, big_endian), length

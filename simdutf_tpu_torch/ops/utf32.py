@@ -111,8 +111,9 @@ def _u8_fast_branches(w: torch.Tensor, length: int, n: int):
     """The four fixed-rate utf32->utf8 branches (ascii, u2, u3, astral);
     each returns (out uint8[4n], out_len) bit-identical to the general
     engine on its class (simdutf_tpu/ops/utf32._u8_fast_branches). Plain
-    torch on every device: the JAX package has no Pallas kernel here
-    either."""
+    torch on every device: the JAX ``pallas`` tier's kernels for these
+    classes (``uniform2_utf32_to_utf8``, ``uniform3_utf32_to_utf8``,
+    ``astral_wordmap``) are not ported yet."""
 
     def br_ascii():
         return bytes_out(native(w, length), length, 4 * n), length
@@ -227,7 +228,8 @@ def _u16_fast_branches(w: torch.Tensor, length: int, n: int, big_endian: bool):
     astral: two units per word); each returns (out uint16[2n], out_len)
     bit-identical to the general engine on its class
     (simdutf_tpu/ops/utf32._u16_fast_branches). Plain torch on every
-    device: the JAX package has no Pallas kernel here either."""
+    device: the JAX ``pallas`` tier's kernels for these classes
+    (``bmp_narrow_utf16``, ``astral_wordmap``) are not ported yet."""
 
     def swp(u):
         return bswap16(u) if big_endian else u

@@ -18,6 +18,7 @@ from ..errors import error_code as ec
 from ..kernels import census as kcen
 from ..kernels import compose16 as kc16
 from ..kernels import compose32 as kc32
+from ..kernels import transcode as ktr
 from ..kernels import validate as kv
 from .common import (
     BIG,
@@ -30,7 +31,6 @@ from .common import (
     scatter_writes,
     shift_left,
     shift_right,
-    to_u16,
     zero_tail,
 )
 
@@ -181,48 +181,30 @@ def _mask_units(units: torch.Tensor, count: int) -> torch.Tensor:
     return torch.where(idx < count, units, torch.zeros_like(units))
 
 
-def _swp16(u: torch.Tensor, big_endian: bool) -> torch.Tensor:
-    return bswap16(u) if big_endian else u
-
-
 def _pad_to(u: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([u, u.new_zeros(n - u.shape[0])])
 
 
 def _u16_fast_branches(b: torch.Tensor, length: int, n: int, big_endian: bool):
     """The four fixed-rate utf8->utf16 branches; each returns
-    (out int32[n] of unit values, out_len) bit-identical to the general
-    engine on its class. Plain torch on every device: the JAX package has
-    no Pallas kernel here either."""
+    (out uint16[n], out_len) bit-identical to the general engine on its
+    class. Each is a fixed-rate kernel of kernels/transcode (the JAX
+    ``pallas`` tier's ``ascii_widen_utf16``, ``uniform2_utf8_to_utf16``,
+    ``uniform3_utf8_to_utf16`` and ``astral_wordmap``'s ``u8_to_u16``
+    variant); the census has proved the class, so their flag is not
+    read."""
 
     def br_ascii():
-        u = zero_tail(b.to(torch.int32), length)
-        return _swp16(u, big_endian), length
+        return ktr.ascii_widen_utf16(b, length, big_endian)[0], length
 
     def br_u2():
-        pr = b[: n // 2 * 2].to(torch.int32).view(-1, 2)
-        u = ((pr[:, 0] & 0x1F) << 6) | (pr[:, 1] & 0x3F)
-        cnt = length // 2
-        return _pad_to(_mask_units(_swp16(u, big_endian), cnt), n), cnt
+        return ktr.uniform2_utf8_to_utf16(b, length, big_endian)[0], length // 2
 
     def br_u3():
-        tr = b[: n // 3 * 3].to(torch.int32).view(-1, 3)
-        u = (((tr[:, 0] & 0x0F) << 12) | ((tr[:, 1] & 0x3F) << 6)
-             | (tr[:, 2] & 0x3F))
-        cnt = length // 3
-        return _pad_to(_mask_units(_swp16(u, big_endian), cnt), n), cnt
+        return ktr.uniform3_utf8_to_utf16(b, length, big_endian)[0], length // 3
 
     def br_u4():
-        q = b[: n // 4 * 4].to(torch.int32).view(-1, 4)
-        # surrogates straight from the bytes: hi = D7C0 + cp >> 10 folds
-        # the -0x10000 in (simdutf_tpu/ops/utf8._u16_fast_branches)
-        hi = 0xD7C0 + (((q[:, 0] & 0x07) << 8) | ((q[:, 1] & 0x3F) << 2)
-                       | ((q[:, 2] >> 4) & 0x03))
-        lo = 0xDC00 + (((q[:, 2] & 0x0F) << 6) | (q[:, 3] & 0x3F))
-        u = torch.stack([_swp16(hi, big_endian), _swp16(lo, big_endian)],
-                        dim=1).reshape(-1)
-        cnt = length // 2
-        return _pad_to(_mask_units(u, cnt), n), cnt
+        return ktr.astral_utf8_to_utf16(b, length, big_endian)[0], length // 2
 
     return br_ascii, br_u2, br_u3, br_u4
 
@@ -301,8 +283,7 @@ def to_utf16(b: torch.Tensor, length: int, big_endian: bool):
     def wrap(br):
         def f():
             out, cnt = br()
-            return (scalar(0, dev), scalar(length, dev), to_u16(out),
-                    scalar(cnt, dev))
+            return scalar(0, dev), scalar(length, dev), out, scalar(cnt, dev)
         return f
 
     return route(
@@ -324,7 +305,7 @@ def to_utf16_valid(b: torch.Tensor, length: int, big_endian: bool):
     def wrap(br):
         def f():
             out, cnt = br()
-            return to_u16(out), scalar(cnt, dev)
+            return out, scalar(cnt, dev)
         return f
 
     def general():
@@ -337,22 +318,22 @@ def to_utf16_valid(b: torch.Tensor, length: int, big_endian: bool):
 
 
 def _u32_fast_branches(b: torch.Tensor, length: int, n: int):
-    """The four fixed-rate utf8->utf32 branches; each returns (out
-    int32[n] of code points, out_len) bit-identical to the general engine
-    on its class (simdutf_tpu/ops/utf8._u32_fast_branches). The ascii,
-    2- and 3-byte classes are the UTF-16 branches' little-endian units;
-    the 4-byte class decodes whole code points. Plain torch on every
-    device: the JAX package has no Pallas kernel here either."""
-    br_ascii, br_u2, br_u3, _ = _u16_fast_branches(b, length, n, False)
+    """The four fixed-rate utf8->utf32 branches (ascii, u2, u3, u4); each
+    returns (out int32[n] of code points, out_len) bit-identical to the
+    general engine on its class (simdutf_tpu/ops/utf8._u32_fast_branches),
+    from the UTF-16 kernels' plain decode (kernels/transcode.class_chars).
+    Plain torch on every device: their Pallas kernels
+    (``latin1_widen_utf32``, ``uniform2_utf8_to_utf32``,
+    ``uniform3_utf8_to_utf32`` and ``astral_wordmap``) are not ported
+    yet."""
 
-    def br_u4():
-        q = b[: n // 4 * 4].to(torch.int32).view(-1, 4)
-        cp = (((q[:, 0] & 0x07) << 18) | ((q[:, 1] & 0x3F) << 12)
-              | ((q[:, 2] & 0x3F) << 6) | (q[:, 3] & 0x3F))
-        cnt = length // 4
-        return _pad_to(_mask_units(cp, cnt), n), cnt
+    def branch(width: int):
+        def br():
+            cnt = length // width
+            return _pad_to(_mask_units(ktr.class_chars(b, length, width)[0], cnt), n), cnt
+        return br
 
-    return br_ascii, br_u2, br_u3, br_u4
+    return tuple(branch(width) for width in (1, 2, 3, 4))
 
 
 def _utf32_general_parts(b: torch.Tensor, length: int):

@@ -22,9 +22,12 @@ from simdutf_tpu_torch.kernels import compose16 as kc
 from simdutf_tpu_torch.kernels import compose32 as kc32
 from simdutf_tpu_torch.kernels import composex as kcx
 from simdutf_tpu_torch.kernels import detect_kernel as kdet
+from simdutf_tpu_torch.kernels import transcode as ktr
 from simdutf_tpu_torch.kernels import utf16_kernels as k16
 from simdutf_tpu_torch.kernels import validate as kv
 from simdutf_tpu_torch.ops import base64_ops as ob
+from simdutf_tpu_torch.ops import utf8 as o8
+from simdutf_tpu_torch.ops import utf16 as o16
 
 pytestmark = pytest.mark.cuda
 
@@ -418,4 +421,121 @@ def test_well_formed_and_valid_compose8_match_plain_versions(cuda, name, data, b
                      k16.utf16_to_well_formed_ref(v, L - 1, be))
         assert _same(kc8.to_utf8_compose(v, L - 1, be, mode="valid"),
                      kc8.to_utf8_compose_ref(v, L - 1, be, mode="valid"))
+    torch.cuda.synchronize()
+
+
+# the fixed-rate kernels: name -> (class char, out-of-class values); the
+# widen kernels take bytes, the narrow kernels units
+_FIXED = {
+    "ascii_widen_utf16": ("a", (0x80, 0xFF)),
+    "uniform2_utf8_to_utf16": ("é", (0x41, 0xC1)),
+    "uniform3_utf8_to_utf16": ("東", (0x41, 0xC3)),
+    "astral_utf8_to_utf16": ("\U0001f642", (0x41, 0xC3)),
+    "ascii_narrow_utf8": ("a", (0x80, 0x100)),
+    "uniform2_utf16_to_utf8": ("é", (0x7F, 0x800)),
+    "uniform3_utf16_to_utf8": ("東", (0x7FF, 0xD800)),
+}
+
+
+def _fixed_elements(name: str, count: int) -> np.ndarray:
+    ch = _FIXED[name][0]
+    if name.endswith("utf16"):  # a widen kernel: UTF-8 bytes
+        return np.frombuffer((ch * count).encode(), np.uint8)[:count].copy()
+    return np.frombuffer((ch * count).encode("utf-16-le"), np.uint16)[:count].copy()
+
+
+def _inputs_fixed():
+    """(kernel, case, native elements): class text cut to lengths 0-3 and
+    to lengths no multiple of 2, 3, 12 or 48 (a cut character flags), and
+    out-of-class elements at 0, at the thread and block steps (16 and 48
+    bytes, 8 and 16 units a thread; 256 threads a block) and at the end."""
+    out = []
+    for name, (_, bad) in _FIXED.items():
+        for count in (0, 1, 2, 3, 5, 47, 49, 97, 1001, 12_289, 50_011):
+            out.append((name, f"len{count}", _fixed_elements(name, count)))
+        base = _fixed_elements(name, 50_011)
+        for pos in (0, 15, 16, 47, 2047, 2048, 4095, 4096, 12_287, 12_288, 50_010):
+            d = base.copy()
+            d[pos] = bad[pos % 2]
+            out.append((name, f"{bad[pos % 2]:#x}@{pos}", d))
+    return out
+
+
+def _stored(data: np.ndarray, be: bool, pad: int, cuda):
+    """The elements in storage order with ``pad`` garbage elements past
+    them, on the card."""
+    L = len(data)
+    bits = 8 * data.itemsize
+    buf = np.random.default_rng(L + pad).integers(0, 1 << bits, L + pad).astype(data.dtype)
+    buf[:L] = data.byteswap() if be and data.dtype == np.uint16 else data
+    if buf.dtype == np.uint8:
+        return torch.from_numpy(buf).to(cuda)
+    return torch.from_numpy(buf.view(np.int16)).to(cuda).view(torch.uint16)
+
+
+@pytest.mark.parametrize("name,case,data", _inputs_fixed(),
+                         ids=[f"{n}-{c}" for n, c, _ in _inputs_fixed()])
+@pytest.mark.parametrize("be", [False, True])
+def test_fixed_rate_kernels_match_plain_versions(cuda, name, case, data, be):
+    x = _stored(data, be, 13, cuda)  # elements past the length are garbage
+    L = len(data)
+    fn, ref = getattr(ktr, name), getattr(ktr, name + "_ref")
+    got = fn(x, L, be)
+    assert _same(got, ref(x, L, be))
+    width = 1 if name.startswith("ascii") or name.endswith("utf8") else len(_FIXED[name][0].encode())
+    # out-of-class elements flag, and so does a character cut at the length
+    assert int(got[1]) == (not case.startswith("len") or L % width != 0)
+    if L > 1:  # a view off the 16-byte grid takes the element loads
+        assert _same(fn(x[1:], L - 1, be), ref(x[1:], L - 1, be))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("ch", ["a", "é", "東", "\U0001f642"])
+@pytest.mark.parametrize("chars", [1, 2, 3, 5, 47, 49, 97, 4097, 50_011])
+@pytest.mark.parametrize("be", [False, True])
+def test_fixed_rate_flag_is_clear_on_census_classes(cuda, ch, chars, be):
+    """Each class the census admits runs its kernel with a clear flag, and
+    the routed call gives CPython's bytes (the astral class has no UTF-16
+    -> UTF-8 kernel)."""
+    text = ch * chars
+    utf8, utf16 = text.encode(), text.encode("utf-16-be" if be else "utf-16-le")
+    units = len(utf16) // 2
+    x = _stored(np.frombuffer(utf8, np.uint8).copy(), False, 7, cuda)
+    w = _stored(np.frombuffer(text.encode("utf-16-le"), np.uint16).copy(), be, 7, cuda)
+    which = {"a": 0, "é": 1, "東": 2, "\U0001f642": 3}[ch]
+    census8 = o8.census_full(x, len(utf8))[:4]
+    census16 = o16.census(w, units, be)
+    assert census8 == census16 == tuple(i == which for i in range(4))
+    widen = ("ascii_widen_utf16", "uniform2_utf8_to_utf16", "uniform3_utf8_to_utf16",
+             "astral_utf8_to_utf16")[which]
+    assert int(getattr(ktr, widen)(x, len(utf8), be)[1]) == 0
+    if which < 3:
+        narrow = ("ascii_narrow_utf8", "uniform2_utf16_to_utf8", "uniform3_utf16_to_utf8")[which]
+        assert int(getattr(ktr, narrow)(w, units, be)[1]) == 0
+    code, pos, out, out_len = o8.to_utf16(x, len(utf8), be)
+    assert (int(code), int(pos), int(out_len)) == (0, len(utf8), units)
+    assert out[:units].view(torch.int16).cpu().numpy().tobytes() == utf16
+    assert not out[units:].view(torch.int16).any()
+    code, pos, out, out_len = o16.to_utf8(w, units, be)
+    assert (int(code), int(pos), int(out_len)) == (0, units, len(utf8))
+    assert out[:len(utf8)].cpu().numpy().tobytes() == utf8
+    assert not out[len(utf8):].any()
+    torch.cuda.synchronize()
+
+
+def test_fixed_rate_wrappers_make_no_host_sync(cuda):
+    x = torch.from_numpy(np.frombuffer("é".encode() * 5000, np.uint8).copy()).to(cuda)
+    w = torch.from_numpy(np.frombuffer("東".encode("utf-16-le") * 5000, np.int16).copy()
+                         ).to(cuda).view(torch.uint16)
+    calls = [lambda name=name: getattr(ktr, name)(x if name.endswith("utf16") else w,
+                                                  5000, True) for name in _FIXED]
+    for call in calls:  # build and load the library first
+        call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
