@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
-Seven paths, each driven through the port's own api
+Eight paths, each driven through the port's own api
 (``simdutf_tpu_torch.api`` on "cuda"): UTF-8 -> UTF-16LE/BE with UTF-8
 validation and counts, UTF-16LE/BE -> UTF-8 with UTF-16 validation and
 counts, forgiving base64 decode and encode, UTF-8 <-> UTF-32 with UTF-32
@@ -11,9 +11,11 @@ validation and lengths, the rest of the transcode matrix (UTF-16LE/BE
 <-> UTF-32, Latin-1 <-> UTF-8/16/32), the utilities (ASCII
 validation, the UTF-16 utilities, encoding detection, trim_partial, the
 valid-only converters on invalid input, the capacity-limited base64
-decode), and the fixed-rate class branches of UTF-8 <-> UTF-16 (whole
+decode), the fixed-rate class branches of UTF-8 <-> UTF-16 (whole
 ASCII, uniform 2- and 3-byte input, and 4-byte UTF-8 -> UTF-16; Latin-1
--> UTF-16). Nothing of the JAX package or of jax is imported. Every path runs at its full depth: the whole run takes a
+-> UTF-16), and those into and out of UTF-32 (UTF-8 <-> UTF-32,
+UTF-16LE/BE <-> UTF-32 of BMP and astral text, Latin-1 -> UTF-32).
+Nothing of the JAX package or of jax is imported. Every path runs at its full depth: the whole run takes a
 few minutes of the 20-minute limit. Phases, each fatal on failure:
   1. device  - name, compute capability (must be 9.0), nvidia-smi power limit;
   2. build   - nvcc builds csrc/*.cu (one process per source) into one library;
@@ -79,6 +81,16 @@ few minutes of the 20-minute limit. Phases, each fatal on failure:
                valid-only, and Latin-1 -> UTF-16LE/BE, against codecs, each
                call launching exactly its census and its kernel (🙂 back to
                UTF-8 only its census: that branch has no kernel);
+     paritytr32 and slicetr32 do the same for the eleven UTF-32
+               fixed-rate kernels: the UTF-8 -> UTF-32 ones on every UTF-8
+               parity input, the UTF-32 -> UTF-8/16 ones on every UTF-32 one
+               (LE and BE output), the UTF-16 -> UTF-32 ones on every UTF-16
+               one (LE and BE), and class text with out-of-class elements at
+               the thread and block steps; then the api on the 64 MiB ASCII,
+               é, 東 and 🙂 corpora, UTF-8 -> UTF-32 -> UTF-8 and UTF-16LE/BE
+               <-> UTF-32, and Latin-1 -> UTF-32, against codecs, each call
+               launching exactly its census and its kernel (ASCII back to
+               UTF-8 only its census);
   5. times   - device-resident kernels and the routed calls against their
                plain versions, with CUDA events, the device-to-device copy
                rate, the library yardsticks where one PyTorch call computes
@@ -125,6 +137,16 @@ FIXED8 = (("ascii_widen_utf16", "a"), ("uniform2_utf8_to_utf16", "é"),
 FIXED16 = (("ascii_narrow_utf8", "a"), ("uniform2_utf16_to_utf8", "é"),
            ("uniform3_utf16_to_utf8", "東"))
 PASSEST = tuple(k for k, _ in FIXED8 + FIXED16)
+#: the UTF-32 fixed-rate class kernels, (name, class char) by direction:
+#: UTF-8 -> UTF-32 (the ASCII class through the Latin-1 widen), UTF-32 ->
+#: UTF-8 (no ASCII kernel), UTF-16 -> UTF-32, UTF-32 -> UTF-16
+FIXED8TO32 = (("latin1_widen_utf32", "a"), ("uniform2_utf8_to_utf32", "é"),
+              ("uniform3_utf8_to_utf32", "東"), ("astral_utf8_to_utf32", "\U0001f642"))
+FIXED32TO8 = (("uniform2_utf32_to_utf8", "é"), ("uniform3_utf32_to_utf8", "東"),
+              ("astral_utf32_to_utf8", "\U0001f642"))
+FIXED16TO32 = (("bmp_widen_utf32", "東"), ("astral_utf16_to_utf32", "\U0001f642"))
+FIXED32TO16 = (("bmp_narrow_utf16", "東"), ("astral_utf32_to_utf16", "\U0001f642"))
+PASSEST32 = tuple(k for k, _ in FIXED8TO32 + FIXED32TO8 + FIXED16TO32 + FIXED32TO16)
 KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
     "census_utf8": ("simdutf_tpu_torch/csrc/census.cu",
                     "simdutf_tpu/kernels/census.py:204", []),
@@ -193,6 +215,30 @@ KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
                                "simdutf_tpu/kernels/transcode.py:385", []),
     "uniform3_utf16_to_utf8": ("simdutf_tpu_torch/csrc/transcode.cu",
                                "simdutf_tpu/kernels/transcode.py:472", []),
+    "latin1_widen_utf32": ("simdutf_tpu_torch/csrc/transcode32.cu",
+                           "simdutf_tpu/kernels/transcode.py:527", []),
+    "uniform2_utf8_to_utf32": ("simdutf_tpu_torch/csrc/transcode32.cu",
+                               "simdutf_tpu/kernels/transcode.py:815", []),
+    "uniform3_utf8_to_utf32": ("simdutf_tpu_torch/csrc/transcode32.cu",
+                               "simdutf_tpu/kernels/transcode.py:937", []),
+    "astral_utf8_to_utf32": ("simdutf_tpu_torch/csrc/transcode32.cu",
+                             "simdutf_tpu/kernels/transcode.py:1127", []),
+    "uniform2_utf32_to_utf8": ("simdutf_tpu_torch/csrc/transcode32.cu",
+                               "simdutf_tpu/kernels/transcode.py:883", []),
+    "uniform3_utf32_to_utf8": ("simdutf_tpu_torch/csrc/transcode32.cu",
+                               "simdutf_tpu/kernels/transcode.py:1005", []),
+    "astral_utf32_to_utf8": ("simdutf_tpu_torch/csrc/transcode32.cu",
+                             "simdutf_tpu/kernels/transcode.py:1127", []),
+    "bmp_widen_utf32": ("simdutf_tpu_torch/csrc/transcode32.cu",
+                        "simdutf_tpu/kernels/transcode.py:632",
+                        ["simdutf_tpu/kernels/transcode.py:612"]),
+    "astral_utf16_to_utf32": ("simdutf_tpu_torch/csrc/transcode32.cu",
+                              "simdutf_tpu/kernels/transcode.py:1127", []),
+    "bmp_narrow_utf16": ("simdutf_tpu_torch/csrc/transcode32.cu",
+                         "simdutf_tpu/kernels/transcode.py:746",
+                         ["simdutf_tpu/kernels/transcode.py:726"]),
+    "astral_utf32_to_utf16": ("simdutf_tpu_torch/csrc/transcode32.cu",
+                              "simdutf_tpu/kernels/transcode.py:1127", []),
 }
 #: HBM rate of one H100 SXM (NVIDIA's data sheet, at the 700 W limit): the
 #: bound of these kernels, which all stream their bytes
@@ -1605,6 +1651,177 @@ def slicetr_phase(device, big: int = CORPUS_BYTES) -> dict:
     return total
 
 
+def _fixed32_injected():
+    """Class text with out-of-class elements at 0, at the UTF-32 kernels'
+    thread and block steps (4 code points a thread, 256 threads a block)
+    and at length-1, and characters cut at the length: (name, bytes) of
+    UTF-8, (name, words) of UTF-32 and (name, native units) of UTF-16."""
+    size = 100_008
+    out8, out32, out16 = [], [], []
+    for ch, bad in (("a", 0x80), ("é", 0x41), ("東", 0xC3), ("\U0001f642", 0x41)):
+        base = class_corpus(ch, size)
+        for pos in (0, 3, 4, 15, 16, 47, 48, 4095, 4096, 12_287, 12_288, len(base) - 1):
+            d = bytearray(base)
+            d[pos] = bad
+            out8.append((f"{ch}-{bad:#x}@{pos}", bytes(d)))
+    out8 += [(f"{ch}-cut@len", class_corpus(ch, size)[:-1]) for ch in ("é", "東", "\U0001f642")]
+    for ch, bads in (("é", (0x800, 0x80000000)), ("東", (0xD800, 0xFFFFFFFF)),
+                     ("\U0001f642", (0x110000, 0xFFFF))):
+        base = _u32(ch * size)
+        for i, pos in enumerate((0, 3, 4, 1023, 1024, 4095, 4096, len(base) - 1)):
+            d = base.copy()
+            d[pos] = bads[i % 2]
+            out32.append((f"{ch}-{bads[i % 2]:#x}@{pos}", d))
+    for ch, bad in (("東", 0xDC00), ("\U0001f642", 0x41)):
+        base = _u16(ch * size)
+        for pos in (0, 3, 4, 7, 8, 2047, 2048, 4095, 4096, len(base) - 1):
+            d = base.copy()
+            d[pos] = bad
+            out16.append((f"{ch}-{bad:#x}@{pos}", d))
+    out16.append(("\U0001f642-cut@len", _u16("\U0001f642" * size)[:-1]))
+    return out8, out32, out16
+
+
+def paritytr32_phase(device, big: int = CORPUS_BYTES) -> dict:
+    """The eleven UTF-32 fixed-rate kernels against their plain versions
+    on ``device``, output and flag bit for bit: the four UTF-8 -> UTF-32
+    kernels on every UTF-8 parity input, the five from UTF-32 on every
+    UTF-32 parity input (UTF-16 output LE and BE), the two UTF-16 ->
+    UTF-32 kernels on every UTF-16 parity input (LE and BE), and class
+    text with out-of-class elements at the thread and block steps; a
+    kernel whose class the census admits must leave its flag clear.
+    Returns the largest error seen per kernel (all must be 0)."""
+    import numpy as np
+    import torch
+
+    from simdutf_tpu_torch.kernels import transcode32 as k32
+    from simdutf_tpu_torch.ops import utf8 as o8
+    from simdutf_tpu_torch.ops import utf16 as o16
+    from simdutf_tpu_torch.ops import utf32 as o32
+
+    def record(k, what, cls, args):
+        got = getattr(k32, k)(*args)
+        plain = getattr(k32, k + "_ref")(*args)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        e = _max_err(got, plain)
+        errs[k] = max(errs[k], e)
+        check(e == 0, f"parity {k} on {what}: max abs err {e}")
+        check(not cls or int(got[1]) == 0, f"{k} flags {what}, a census class")
+        return int(cls)
+
+    errs = dict.fromkeys(PASSEST32, 0)
+    inj8, inj32, inj16 = _fixed32_injected()
+    admitted = 0
+    cases8 = parity_cases(big) + [(name, d, len(d) + 13, True) for name, d in inj8]
+    for name, data, n, garbage in cases8:
+        L = len(data)
+        buf = np.zeros(n, np.uint8)
+        if garbage:
+            buf[:] = np.random.default_rng(L).integers(0, 256, n)
+        buf[:L] = np.frombuffer(data, np.uint8)
+        x = torch.from_numpy(buf).to(device)
+        for (k, _), cls in zip(FIXED8TO32, o8.census_full(x, L)[:4]):
+            admitted += record(k, f"{name} (n={n}, length={L})", cls, (x, L))
+    cases32 = parity32_cases(big) + [(name, w, len(w) + 13, True) for name, w in inj32]
+    for name, words, n, garbage in cases32:
+        L = len(words)
+        w = torch.from_numpy(_words_buffer(name, words, n, garbage).view(np.int32)).to(device)
+        _, u2, u3, astral, bmp = o32.census(w, L)
+        what = f"{name} (n={n}, length={L})"
+        for (k, _), cls in zip(FIXED32TO8, (u2, u3, astral)):
+            admitted += record(k, what, cls, (w, L))
+        for be in (False, True):
+            for (k, _), cls in zip(FIXED32TO16, (bmp, astral)):
+                admitted += record(k, f"{what}, be={be}", cls, (w, L, be))
+    cases16 = parity16_cases(big) + [(name, u, len(u) + 13, True) for name, u in inj16]
+    for name, units, n, garbage in cases16:
+        L = len(units)
+        buf = _units_buffer(name, units, n, garbage)
+        for be in (False, True):
+            stored = buf.byteswap() if be else buf
+            w = torch.from_numpy(stored.view(np.int16)).to(device).view(torch.uint16)
+            for (k, _), cls in zip(FIXED16TO32, o16.census32(w, L, be)):
+                admitted += record(k, f"{name} (n={n}, length={L}, be={be})", cls, (w, L, be))
+    log(f"paritytr32: {len(cases8)} byte, {len(cases32)} word and {len(cases16)} unit buffers "
+        f"(LE and BE), every UTF-32 fixed-rate kernel's output and flag bit-identical to its "
+        f"plain version; flag clear on all {admitted} calls on a census-admitted class")
+    return errs
+
+
+def slicetr32_phase(device, big: int = CORPUS_BYTES) -> dict:
+    """The port's api on the 64 MiB ASCII, é, 東 and 🙂 corpora: UTF-8 ->
+    UTF-32 -> UTF-8 and UTF-16LE/BE <-> UTF-32 (validating and valid-only),
+    and Latin-1 -> UTF-32 of the 64 MiB Latin-1 buffer, against CPython's
+    codecs. Each call runs with the counts set to 0 just before it and read
+    just after: a class call must launch exactly its census and its
+    fixed-rate kernel (the UTF-32 census counts its ``utf32_first_bad``
+    pass; ASCII back to UTF-8 has no kernel, only its census), Latin-1 ->
+    UTF-32 exactly the Latin-1 widen. Returns the launches of each kernel
+    summed over these calls."""
+    from simdutf_tpu_torch import api as su
+    from simdutf_tpu_torch.kernels import _build
+
+    su.use_device(device)
+    total = dict.fromkeys(PASSEST32, 0)
+
+    def launched(call, want: dict):
+        _build.reset_launches()
+        got = call()
+        launches = dict(_build.LAUNCHES)
+        check(launches == want, f"launches {launches}, want {want}")
+        for k in PASSEST32:
+            total[k] += launches.get(k, 0)
+        return got
+
+    from8 = {ch: k for k, ch in FIXED8TO32}
+    to8 = {ch: k for k, ch in FIXED32TO8}
+    for ch in from8:
+        data = class_corpus(ch, big)
+        text = data.decode("utf-8")
+        w32 = text.encode("utf-32-le")
+        fwd = {"census_utf8": 1, from8[ch]: 1}
+        res, out = launched(lambda: su.convert_utf8_to_utf32_with_errors(data), fwd)
+        check(res.is_ok and res.count == len(w32) // 4 and out == w32,
+              f"{ch} utf8 -> utf32: {res} differs from codecs")
+        check(launched(lambda: su.convert_valid_utf8_to_utf32(data), fwd) == w32,
+              f"{ch} valid utf8 -> utf32 differs from codecs")
+        back = {"utf32_first_bad": 1, **({to8[ch]: 1} if ch in to8 else {})}
+        res, out = launched(lambda: su.convert_utf32_to_utf8_with_errors(w32), back)
+        check(res.is_ok and res.count == len(data) and out == data,
+              f"{ch} utf32 -> utf8: {res} differs from the corpus")
+        check(launched(lambda: su.convert_valid_utf32_to_utf8(w32), back) == data,
+              f"{ch} valid utf32 -> utf8 differs from the corpus")
+        bmp = ch != "\U0001f642"
+        k16 = {"census_utf16": 1, "bmp_widen_utf32" if bmp else "astral_utf16_to_utf32": 1}
+        k32 = {"utf32_first_bad": 1, "bmp_narrow_utf16" if bmp else "astral_utf32_to_utf16": 1}
+        for end, codec in (("le", "utf-16-le"), ("be", "utf-16-be")):
+            u16 = text.encode(codec)
+            res, out = launched(
+                lambda: getattr(su, f"convert_utf16{end}_to_utf32_with_errors")(u16), k16)
+            check(res.is_ok and res.count == len(w32) // 4 and out == w32,
+                  f"{ch} {codec} -> utf32: {res} differs from codecs")
+            check(launched(lambda: getattr(su, f"convert_valid_utf16{end}_to_utf32")(u16), k16)
+                  == w32, f"{ch} valid {codec} -> utf32 differs from codecs")
+            res, out = launched(
+                lambda: getattr(su, f"convert_utf32_to_utf16{end}_with_errors")(w32), k32)
+            check(res.is_ok and res.count == len(u16) // 2 and out == u16,
+                  f"{ch} utf32 -> {codec}: {res} differs from codecs")
+            check(launched(lambda: getattr(su, f"convert_valid_utf32_to_utf16{end}")(w32), k32)
+                  == u16, f"{ch} valid utf32 -> {codec} differs from codecs")
+        log(f"slicetr32: {len(data)} B of {ch!r} -> {len(w32) // 4} words -> {len(data)} B, "
+            f"UTF-16LE/BE <-> UTF-32 (validating and valid-only) equal codecs; each call "
+            f"launched its census + {from8[ch]} / {to8.get(ch, 'no kernel')} / "
+            f"{next(iter(k16.keys() - {'census_utf16'}))} / "
+            f"{next(iter(k32.keys() - {'utf32_first_bad'}))}")
+    lat = latin1_corpus(big)
+    out = launched(lambda: su.convert_latin1_to_utf32(lat), {"latin1_widen_utf32": 1})
+    check(out == lat.decode("latin-1").encode("utf-32-le"), "latin1 -> utf32 differs")
+    log(f"slicetr32: {len(lat)} Latin-1 B -> UTF-32 equal codecs through latin1_widen_utf32; "
+        f"launches {total}")
+    return total
+
+
 def cuda_ms(fn, iters: int = 10, trials: int = 7) -> float:
     """Median over trials of the mean time of ``iters`` calls, by CUDA
     events, after one warm-up call."""
@@ -2018,6 +2235,117 @@ def timestr_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dict]
     return ms, moved, library
 
 
+def timestr32_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dict]:
+    """ms of each UTF-32 fixed-rate kernel and of its plain version at the
+    class calls' shapes, device-resident: the 64 MiB ASCII, é, 東 and 🙂
+    corpora in their 64 MiB bucket (UTF-8 -> UTF-32), their UTF-32 words
+    (-> UTF-8, -> UTF-16LE) and UTF-16LE units (-> UTF-32) in their
+    buckets; the routed class calls against the census's and the branch's
+    plain versions, and Latin-1 -> UTF-32 of the 64 MiB Latin-1 buffer;
+    the library yardsticks ``x.to(torch.int32)`` (#24, the ASCII bytes),
+    ``u.to(torch.int32)`` (#26, LE BMP units; none where the cast has no
+    CUDA kernel for uint16) and ``w.to(torch.int16)`` (#28, BMP words; no
+    PyTorch call computes the other classes); a torch.profiler breakdown
+    of each routed call."""
+    import numpy as np
+    import torch
+
+    from simdutf_tpu_torch import impl
+    from simdutf_tpu_torch.kernels import census as kcen
+    from simdutf_tpu_torch.kernels import transcode32 as k32
+    from simdutf_tpu_torch.kernels import validate as kv
+    from simdutf_tpu_torch.ops import latin1 as ol1
+    from simdutf_tpu_torch.ops import utf8 as o8
+    from simdutf_tpu_torch.ops import utf16 as o16
+    from simdutf_tpu_torch.ops import utf32 as o32
+
+    ms, moved, library = {}, {}, {}
+
+    def staged(arr):
+        x, n = impl.to_device(*impl._pad(arr), "cuda")
+        torch.cuda.synchronize()
+        return x, n
+
+    def yardstick(k, call, what):
+        try:
+            library[k] = cuda_ms(call)
+        except (RuntimeError, NotImplementedError) as exc:  # a cast with no CUDA kernel
+            log(f"time library {what}: none, {type(exc).__name__}: {str(exc)[:120]} [{card}]")
+            return
+        log(f"time library {what}: {library[k]:.4f} ms [{card}]")
+
+    def timed(k, kern, plain, route, plain_route, nbytes, what):
+        ms.update(_time_pairs({k: (kern, plain), what: (route, plain_route)}, nbytes, card))
+        breakdown(route, what, card)
+
+    for k, ch in FIXED8TO32:
+        x, L = staged(np.frombuffer(class_corpus(ch, big), np.uint8))
+        fn, ref = getattr(k32, k), getattr(k32, k + "_ref")
+
+        def plain_route(x=x, L=L, ref=ref):
+            int(kcen.census_bits_ref(x, L))  # the route's one sync
+            return ref(x, L)
+
+        timed(k, lambda x=x, L=L, fn=fn: fn(x, L), lambda x=x, L=L, ref=ref: ref(x, L),
+              lambda x=x, L=L: o8.to_utf32(x, L), plain_route, L,
+              f"to_utf32 (ops.utf8, routed, {ch!r} class, {L} B in a {x.numel()} B bucket)")
+        moved[k] = L + 4 * x.numel()
+        if k == "latin1_widen_utf32":
+            yardstick(k, lambda x=x: x.to(torch.int32),
+                      f"x.to(torch.int32) over the {x.numel()} B bucket")
+        del x
+    lat, B = staged(np.frombuffer(latin1_corpus(big), np.uint8))
+    ms.update(_time_pairs({"to_utf32 (ops.latin1, routed)": (
+        lambda: ol1.to_utf32(lat, B), lambda: k32.latin1_widen_utf32_ref(lat, B))}, B, card))
+    breakdown(lambda: ol1.to_utf32(lat, B), f"latin1 to_utf32 ({B} B)", card)
+    del lat
+
+    def census32_plain(w, W):
+        lo, hi = torch.aminmax(w[:W])  # the census, with its one sync
+        torch.stack([lo.to(torch.int64), hi.to(torch.int64), kv.utf32_first_bad_ref(w, W)]).tolist()
+
+    for k, ch in FIXED32TO8 + FIXED32TO16:
+        w, W = staged(_u32(class_corpus(ch, big).decode()))
+        fn, ref = getattr(k32, k), getattr(k32, k + "_ref")
+        to8 = k in dict(FIXED32TO8)
+        args = (w, W) if to8 else (w, W, False)
+
+        def plain_route(w=w, W=W, ref=ref, args=args):
+            census32_plain(w, W)
+            return ref(*args)
+
+        timed(k, lambda fn=fn, args=args: fn(*args), lambda ref=ref, args=args: ref(*args),
+              (lambda w=w, W=W: o32.to_utf8(w, W)) if to8 else
+              (lambda w=w, W=W: o32.to_utf16(w, W, False)), plain_route, 4 * W,
+              f"{'to_utf8' if to8 else 'to_utf16le'} (ops.utf32, routed, {ch!r} class, {W} words "
+              f"in a {w.numel()}-word bucket)")
+        moved[k] = 4 * W + 4 * w.numel()  # 4n bytes out: UTF-8 or 2n units
+        if k == "bmp_narrow_utf16":
+            yardstick(k, lambda w=w: w.to(torch.int16),
+                      f"w.to(torch.int16) over the {w.numel()}-word bucket")
+        del w
+    for k, ch in FIXED16TO32:
+        u, U = staged(_u16(class_corpus(ch, big).decode()))
+        fn, ref = getattr(k32, k), getattr(k32, k + "_ref")
+
+        def plain_route(u=u, U=U, ref=ref):
+            bits = kcen.census16_bits_ref(u, U, False)  # census32, with its one sync
+            sur = ((u.view(torch.int16)[:U] >> 11) == -5).any()
+            torch.stack([bits.to(torch.int64), sur.to(torch.int64)]).tolist()
+            return ref(u, U, False)
+
+        timed(k, lambda u=u, U=U, fn=fn: fn(u, U, False), lambda u=u, U=U, ref=ref: ref(u, U, False),
+              lambda u=u, U=U: o16.to_utf32(u, U, False), plain_route, 2 * U,
+              f"to_utf32 (ops.utf16, routed, {ch!r} class, {U} units in a {u.numel()}-unit bucket)")
+        moved[k] = 2 * U + 4 * u.numel()
+        if k == "bmp_widen_utf32":
+            yardstick(k, lambda u=u: u.to(torch.int32),
+                      f"u.to(torch.int32) over the {u.numel()}-unit uint16 bucket")
+        del u
+    log(f"bytes: {moved}")
+    return ms, moved, library
+
+
 def breakdown(fn, what: str, card: str, iters: int = 20) -> None:
     """Device time per call of each kernel ``fn`` runs, and the device's
     busy share of the window, from torch.profiler."""
@@ -2078,6 +2406,8 @@ def main() -> int:
         launchesu = sliceu_phase("cuda")
         errs.update(paritytr_phase("cuda"))
         launchest = slicetr_phase("cuda")
+        errs.update(paritytr32_phase("cuda"))
+        launchest32 = slicetr32_phase("cuda")
         rate = copy_phase(card)
         ms, moved = times_phase(card)
         for phase in (times64_phase, times32_phase, timesx_phase):
@@ -2087,10 +2417,11 @@ def main() -> int:
         more_ms, more_moved, library = timesu_phase(card)
         ms.update(more_ms)
         moved.update(more_moved)
-        more_ms, more_moved, more_library = timestr_phase(card)
-        ms.update(more_ms)
-        moved.update(more_moved)
-        library.update(more_library)
+        for phase in (timestr_phase, timestr32_phase):
+            more_ms, more_moved, more_library = phase(card)
+            ms.update(more_ms)
+            moved.update(more_moved)
+            library.update(more_library)
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "simdutf_tpu"))
         check(not loaded, f"jax or the JAX package was imported: {loaded}")
@@ -2099,7 +2430,7 @@ def main() -> int:
         return 1
     paths = ((launches8, PASSES), (launches16, PASSES16),
              (launches64, PASSES64), (launches32, PASSES32), (launchesx, PASSESX),
-             (launchesu, PASSESU), (launchest, PASSEST))
+             (launchesu, PASSESU), (launchest, PASSEST), (launchest32, PASSEST32))
     launches = {k: got[k] for got, path in paths for k in path}
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],

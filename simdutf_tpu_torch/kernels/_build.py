@@ -74,6 +74,17 @@ SIGNATURES = {
     "ascii_narrow_utf8": (_P, _I64, _I64, _I32, _P, _P, _P),
     "uniform2_utf16_to_utf8": (_P, _I64, _I64, _I32, _P, _P, _P),
     "uniform3_utf16_to_utf8": (_P, _I64, _I64, _I32, _P, _P, _P),
+    "latin1_widen_utf32": (_P, _I64, _I64, _I32, _P, _P, _P),
+    "uniform2_utf8_to_utf32": (_P, _I64, _I64, _I32, _P, _P, _P),
+    "uniform3_utf8_to_utf32": (_P, _I64, _I64, _I32, _P, _P, _P),
+    "astral_utf8_to_utf32": (_P, _I64, _I64, _I32, _P, _P, _P),
+    "uniform2_utf32_to_utf8": (_P, _I64, _I64, _I32, _P, _P, _P),
+    "uniform3_utf32_to_utf8": (_P, _I64, _I64, _I32, _P, _P, _P),
+    "astral_utf32_to_utf8": (_P, _I64, _I64, _I32, _P, _P, _P),
+    "bmp_widen_utf32": (_P, _I64, _I64, _I32, _P, _P, _P),
+    "astral_utf16_to_utf32": (_P, _I64, _I64, _I32, _P, _P, _P),
+    "bmp_narrow_utf16": (_P, _I64, _I64, _I32, _P, _P, _P),
+    "astral_utf32_to_utf16": (_P, _I64, _I64, _I32, _P, _P, _P),
 }
 
 #: kernel launches per wrapper name since the last :func:`reset_launches`

@@ -70,8 +70,9 @@ def class_chars(b: torch.Tensor, length: int, width: int):
 
 
 def _units_out(u: torch.Tensor, cnt: int, n: int, be: bool) -> torch.Tensor:
-    """uint16[n]: the first ``cnt`` of the int32 code units ``u`` (byte-
-    swapped when ``be``), zeros after them."""
+    """uint16[n]: the low 16 bits of the first ``cnt`` of the int32 values
+    ``u`` (byte-swapped when ``be``), zeros after them."""
+    u = u & 0xFFFF
     u = zero_tail(bswap16(u) if be else u, cnt)[:n]
     return to_u16(torch.cat([u, u.new_zeros(n - u.shape[0])]))
 
@@ -84,25 +85,34 @@ def _native(w: torch.Tensor, length: int, be: bool) -> torch.Tensor:
     return o16.native(w, length, be)
 
 
-def _wrapper(name: str, ref, narrow: bool, doc: str):
-    """The public function ``name``: ``ref`` on a CPU tensor, else one
-    launch of entry point ``name`` into a fresh output buffer (uint8[3n]
-    when ``narrow``, else uint16[n]) and a zeroed device flag."""
-    check = _build.check_units if narrow else _build.check_bytes
+def _wrapper(name: str, ref, check, out_dtype: torch.dtype, per: int, doc: str,
+             endian: bool = True):
+    """The public function ``name``: ``ref`` on a CPU tensor (``check``
+    validates the input), else one launch of entry point ``name`` into a
+    fresh output buffer of ``per * n`` elements of ``out_dtype`` and a
+    zeroed device flag. Without ``endian`` (UTF-8 <-> UTF-32, which have no
+    byte order) the function takes no ``be`` and the launch passes 0."""
 
-    def wrapper(x: torch.Tensor, length: int, be: bool):
+    def launch(x: torch.Tensor, length: int, be: bool):
         length = int(length)
         if check(x, length) == "cpu":
-            return ref(x, length, be)
+            return ref(x, length, be) if endian else ref(x, length)
         n = x.shape[0]
-        if narrow:
-            out = torch.empty(3 * n, dtype=torch.uint8, device=x.device)
+        if out_dtype == torch.uint16:  # allocated as int16, as every backend can
+            out = torch.empty(per * n, dtype=torch.int16, device=x.device).view(torch.uint16)
         else:
-            out = torch.empty(n, dtype=torch.int16, device=x.device).view(torch.uint16)
+            out = torch.empty(per * n, dtype=out_dtype, device=x.device)
         flag = torch.zeros(1, dtype=torch.int32, device=x.device)
         _build.call(name, x.data_ptr(), n, length, int(be), out.data_ptr(), flag.data_ptr())
         _build.count_launch(name)
         return out, flag[0]
+
+    if endian:
+        def wrapper(x: torch.Tensor, length: int, be: bool):
+            return launch(x, length, be)
+    else:
+        def wrapper(x: torch.Tensor, length: int):
+            return launch(x, length, False)
 
     wrapper.__name__ = wrapper.__qualname__ = name
     wrapper.__doc__ = doc
@@ -148,20 +158,24 @@ def astral_utf8_to_utf16_ref(b: torch.Tensor, length: int, be: bool):
     return _units_out(u, length // 4 * 2, b.shape[0], be), _flag(~ok & first)
 
 
-ascii_widen_utf16 = _wrapper("ascii_widen_utf16", ascii_widen_utf16_ref, False, """
+ascii_widen_utf16 = _wrapper("ascii_widen_utf16", ascii_widen_utf16_ref,
+    _build.check_bytes, torch.uint16, 1, """
     uint8[n] -> (uint16[n], flag): ``b[:length]`` as ASCII in UTF-16 (LE,
     or BE when ``be``); the flag fires on a byte >= 0x80. Latin-1 bytes
     widen as their code points all the same.""")
 
-uniform2_utf8_to_utf16 = _wrapper("uniform2_utf8_to_utf16", uniform2_utf8_to_utf16_ref, False, """
+uniform2_utf8_to_utf16 = _wrapper("uniform2_utf8_to_utf16", uniform2_utf8_to_utf16_ref,
+    _build.check_bytes, torch.uint16, 1, """
     uint8[n] -> (uint16[n], flag): ``b[:length]`` as pure 2-byte UTF-8 in
     UTF-16, ``length // 2`` units then zeros.""")
 
-uniform3_utf8_to_utf16 = _wrapper("uniform3_utf8_to_utf16", uniform3_utf8_to_utf16_ref, False, """
+uniform3_utf8_to_utf16 = _wrapper("uniform3_utf8_to_utf16", uniform3_utf8_to_utf16_ref,
+    _build.check_bytes, torch.uint16, 1, """
     uint8[n] -> (uint16[n], flag): ``b[:length]`` as pure 3-byte UTF-8 in
     UTF-16, ``length // 3`` units then zeros.""")
 
-astral_utf8_to_utf16 = _wrapper("astral_utf8_to_utf16", astral_utf8_to_utf16_ref, False, """
+astral_utf8_to_utf16 = _wrapper("astral_utf8_to_utf16", astral_utf8_to_utf16_ref,
+    _build.check_bytes, torch.uint16, 1, """
     uint8[n] -> (uint16[n], flag): ``b[:length]`` as pure 4-byte UTF-8 in
     UTF-16, ``length // 4`` surrogate pairs then zeros.""")
 
@@ -195,14 +209,17 @@ def uniform3_utf16_to_utf8_ref(w: torch.Tensor, length: int, be: bool):
     return bytes_out(by, 3 * length, 3 * w.shape[0]), _flag(bad)
 
 
-ascii_narrow_utf8 = _wrapper("ascii_narrow_utf8", ascii_narrow_utf8_ref, True, """
+ascii_narrow_utf8 = _wrapper("ascii_narrow_utf8", ascii_narrow_utf8_ref,
+    _build.check_units, torch.uint8, 3, """
     uint16[n] (byte-swapped units when ``be``) -> (uint8[3n], flag):
     ``w[:length]`` as ASCII UTF-8, ``length`` bytes then zeros.""")
 
-uniform2_utf16_to_utf8 = _wrapper("uniform2_utf16_to_utf8", uniform2_utf16_to_utf8_ref, True, """
+uniform2_utf16_to_utf8 = _wrapper("uniform2_utf16_to_utf8", uniform2_utf16_to_utf8_ref,
+    _build.check_units, torch.uint8, 3, """
     uint16[n] -> (uint8[3n], flag): ``w[:length]`` (all in 0x80-0x7FF) as
     UTF-8, ``2 * length`` bytes then zeros.""")
 
-uniform3_utf16_to_utf8 = _wrapper("uniform3_utf16_to_utf8", uniform3_utf16_to_utf8_ref, True, """
+uniform3_utf16_to_utf8 = _wrapper("uniform3_utf16_to_utf8", uniform3_utf16_to_utf8_ref,
+    _build.check_units, torch.uint8, 3, """
     uint16[n] -> (uint8[3n], flag): ``w[:length]`` (all in 0x800-0xFFFF,
     no surrogate) as UTF-8, ``3 * length`` bytes then zeros.""")

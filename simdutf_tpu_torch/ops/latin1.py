@@ -14,6 +14,7 @@ import torch
 from ..kernels import census as kcen
 from ..kernels import composex as kcx
 from ..kernels import transcode as ktr
+from ..kernels import transcode32 as ktr32
 from ..kernels import validate as kv
 from .common import bytes_out, excl_scan, positions, route, scalar, scatter_writes
 
@@ -79,5 +80,9 @@ def to_utf16(b: torch.Tensor, length: int, big_endian: bool) -> torch.Tensor:
 
 
 def to_utf32(b: torch.Tensor, length: int) -> torch.Tensor:
-    """int32[N] of uint32 words: every byte of the buffer widened."""
-    return b.to(torch.int32)
+    """int32[N] of uint32 words: every byte of the buffer widened, past
+    ``length`` too (a whole-buffer widen, as in the JAX package): the
+    Latin-1 widen kernel (kernels/transcode32.latin1_widen_utf32) with the
+    buffer's size as its length and its flag unread, the JAX ``pallas``
+    tier's own use of it."""
+    return ktr32.latin1_widen_utf32(b, b.shape[0])[0]

@@ -20,6 +20,7 @@ from ..kernels import census as kcen
 from ..kernels import compose8 as kc8
 from ..kernels import composex as kcx
 from ..kernels import transcode as ktr
+from ..kernels import transcode32 as ktr32
 from ..kernels import utf16_kernels as k16
 from .common import (
     BIG,
@@ -314,20 +315,16 @@ def census32(w: torch.Tensor, length: int, big_endian: bool):
 def _u32_fast_branches(w: torch.Tensor, length: int, n: int, big_endian: bool):
     """The fixed-rate utf16->utf32 branches (bmp: a widen; astral: one
     word per pair); each returns (out int32[n], out_len) bit-identical to
-    the general engine on its class. Plain torch on every device: the JAX
-    ``pallas`` tier's kernels for these classes (``bmp_widen_utf32``,
-    ``astral_wordmap``) are not ported yet."""
+    the general engine on its class. Each is a fixed-rate kernel of
+    kernels/transcode32 (the JAX ``pallas`` tier's ``bmp_widen_utf32`` and
+    ``astral_wordmap``'s ``u16pair_to_u32`` variant); the census has proved
+    the class, so their flag is not read."""
 
     def br_bmp():
-        return native(w, length, big_endian), length
+        return ktr32.bmp_widen_utf32(w, length, big_endian)[0], length
 
     def br_astral():
-        pr = _native16(w[: n // 2 * 2], big_endian).view(-1, 2)
-        cp = ((pr[:, 0] - 0xD7C0) << 10) | (pr[:, 1] & 0x3FF)
-        cnt = length // 2
-        out = torch.zeros(n, dtype=torch.int32, device=w.device)
-        out[: cp.shape[0]] = zero_tail(cp, cnt)
-        return out, cnt
+        return ktr32.astral_utf16_to_utf32(w, length, big_endian)[0], length // 2
 
     return br_bmp, br_astral
 

@@ -17,6 +17,7 @@ import torch
 
 from ..errors import error_code as ec
 from ..kernels import composex as kcx
+from ..kernels import transcode32 as ktr32
 from ..kernels import validate as kv
 from .common import (BIG, bswap16, bytes_out, count_before, excl_scan, positions,
                      route, scalar, scatter_writes, to_u16, zero_tail)
@@ -110,30 +111,26 @@ def census(w: torch.Tensor, length: int):
 def _u8_fast_branches(w: torch.Tensor, length: int, n: int):
     """The four fixed-rate utf32->utf8 branches (ascii, u2, u3, astral);
     each returns (out uint8[4n], out_len) bit-identical to the general
-    engine on its class (simdutf_tpu/ops/utf32._u8_fast_branches). Plain
-    torch on every device: the JAX ``pallas`` tier's kernels for these
-    classes (``uniform2_utf32_to_utf8``, ``uniform3_utf32_to_utf8``,
-    ``astral_wordmap``) are not ported yet."""
+    engine on its class (simdutf_tpu/ops/utf32._u8_fast_branches). The u2,
+    u3 and astral branches are the fixed-rate kernels of
+    kernels/transcode32 (the JAX ``pallas`` tier's
+    ``uniform2_utf32_to_utf8``, ``uniform3_utf32_to_utf8`` and
+    ``astral_wordmap``'s ``u32_to_u8`` variant); the census has proved the
+    class, so their flag is not read. The ascii branch is plain torch on
+    every device: no Pallas kernel computes it either (the ``pallas``
+    tier's ``_u32_to_u8_fast`` has no ASCII arm)."""
 
     def br_ascii():
         return bytes_out(native(w, length), length, 4 * n), length
 
     def br_u2():
-        cp = native(w, length)
-        by = torch.stack([(cp >> 6) | 0xC0, (cp & 0x3F) | 0x80], 1)
-        return bytes_out(by.reshape(-1), 2 * length, 4 * n), 2 * length
+        return ktr32.uniform2_utf32_to_utf8(w, length)[0], 2 * length
 
     def br_u3():
-        cp = native(w, length)
-        by = torch.stack([(cp >> 12) | 0xE0, ((cp >> 6) & 0x3F) | 0x80,
-                          (cp & 0x3F) | 0x80], 1)
-        return bytes_out(by.reshape(-1), 3 * length, 4 * n), 3 * length
+        return ktr32.uniform3_utf32_to_utf8(w, length)[0], 3 * length
 
     def br_astral():
-        cp = native(w, length)
-        by = torch.stack([(cp >> 18) | 0xF0, ((cp >> 12) & 0x3F) | 0x80,
-                          ((cp >> 6) & 0x3F) | 0x80, (cp & 0x3F) | 0x80], 1)
-        return bytes_out(by.reshape(-1), 4 * length, 4 * n), 4 * length
+        return ktr32.astral_utf32_to_utf8(w, length)[0], 4 * length
 
     return br_ascii, br_u2, br_u3, br_astral
 
@@ -227,22 +224,16 @@ def _u16_fast_branches(w: torch.Tensor, length: int, n: int, big_endian: bool):
     """The two fixed-rate utf32->utf16 branches (bmp: a narrowing store;
     astral: two units per word); each returns (out uint16[2n], out_len)
     bit-identical to the general engine on its class
-    (simdutf_tpu/ops/utf32._u16_fast_branches). Plain torch on every
-    device: the JAX ``pallas`` tier's kernels for these classes
-    (``bmp_narrow_utf16``, ``astral_wordmap``) are not ported yet."""
-
-    def swp(u):
-        return bswap16(u) if big_endian else u
+    (simdutf_tpu/ops/utf32._u16_fast_branches). Each is a fixed-rate kernel
+    of kernels/transcode32 (the JAX ``pallas`` tier's ``bmp_narrow_utf16``
+    and ``astral_wordmap``'s ``u32_to_u16pair`` variant); the census has
+    proved the class, so their flag is not read."""
 
     def br_bmp():
-        out = torch.zeros(2 * n, dtype=torch.int32, device=w.device)
-        out[:n] = swp(native(w, length))
-        return to_u16(out), length
+        return ktr32.bmp_narrow_utf16(w, length, big_endian)[0], length
 
     def br_astral():
-        cpx = native(w, length) - 0x10000
-        u = torch.stack([swp(0xD800 + (cpx >> 10)), swp(0xDC00 + (cpx & 0x3FF))], 1)
-        return to_u16(zero_tail(u.reshape(-1), 2 * length)), 2 * length
+        return ktr32.astral_utf32_to_utf16(w, length, big_endian)[0], 2 * length
 
     return br_bmp, br_astral
 

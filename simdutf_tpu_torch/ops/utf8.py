@@ -19,6 +19,7 @@ from ..kernels import census as kcen
 from ..kernels import compose16 as kc16
 from ..kernels import compose32 as kc32
 from ..kernels import transcode as ktr
+from ..kernels import transcode32 as ktr32
 from ..kernels import validate as kv
 from .common import (
     BIG,
@@ -176,15 +177,6 @@ def presence(b: torch.Tensor, length: int):
     return census_full(b, length)[4:]
 
 
-def _mask_units(units: torch.Tensor, count: int) -> torch.Tensor:
-    idx = positions(units.shape[0], units.device)
-    return torch.where(idx < count, units, torch.zeros_like(units))
-
-
-def _pad_to(u: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.cat([u, u.new_zeros(n - u.shape[0])])
-
-
 def _u16_fast_branches(b: torch.Tensor, length: int, n: int, big_endian: bool):
     """The four fixed-rate utf8->utf16 branches; each returns
     (out uint16[n], out_len) bit-identical to the general engine on its
@@ -320,20 +312,26 @@ def to_utf16_valid(b: torch.Tensor, length: int, big_endian: bool):
 def _u32_fast_branches(b: torch.Tensor, length: int, n: int):
     """The four fixed-rate utf8->utf32 branches (ascii, u2, u3, u4); each
     returns (out int32[n] of code points, out_len) bit-identical to the
-    general engine on its class (simdutf_tpu/ops/utf8._u32_fast_branches),
-    from the UTF-16 kernels' plain decode (kernels/transcode.class_chars).
-    Plain torch on every device: their Pallas kernels
-    (``latin1_widen_utf32``, ``uniform2_utf8_to_utf32``,
-    ``uniform3_utf8_to_utf32`` and ``astral_wordmap``) are not ported
-    yet."""
+    general engine on its class (simdutf_tpu/ops/utf8._u32_fast_branches).
+    Each is a fixed-rate kernel of kernels/transcode32 (the JAX ``pallas``
+    tier's ``latin1_widen_utf32``, ``uniform2_utf8_to_utf32``,
+    ``uniform3_utf8_to_utf32`` and ``astral_wordmap``'s ``u8_to_u32``
+    variant); the census has proved the class, so their flag is not
+    read."""
 
-    def branch(width: int):
-        def br():
-            cnt = length // width
-            return _pad_to(_mask_units(ktr.class_chars(b, length, width)[0], cnt), n), cnt
-        return br
+    def br_ascii():
+        return ktr32.latin1_widen_utf32(b, length)[0], length
 
-    return tuple(branch(width) for width in (1, 2, 3, 4))
+    def br_u2():
+        return ktr32.uniform2_utf8_to_utf32(b, length)[0], length // 2
+
+    def br_u3():
+        return ktr32.uniform3_utf8_to_utf32(b, length)[0], length // 3
+
+    def br_u4():
+        return ktr32.astral_utf8_to_utf32(b, length)[0], length // 4
+
+    return br_ascii, br_u2, br_u3, br_u4
 
 
 def _utf32_general_parts(b: torch.Tensor, length: int):

@@ -23,11 +23,14 @@ from simdutf_tpu_torch.kernels import compose32 as kc32
 from simdutf_tpu_torch.kernels import composex as kcx
 from simdutf_tpu_torch.kernels import detect_kernel as kdet
 from simdutf_tpu_torch.kernels import transcode as ktr
+from simdutf_tpu_torch.kernels import transcode32 as k32
 from simdutf_tpu_torch.kernels import utf16_kernels as k16
 from simdutf_tpu_torch.kernels import validate as kv
 from simdutf_tpu_torch.ops import base64_ops as ob
+from simdutf_tpu_torch.ops import latin1 as ol1
 from simdutf_tpu_torch.ops import utf8 as o8
 from simdutf_tpu_torch.ops import utf16 as o16
+from simdutf_tpu_torch.ops import utf32 as o32
 
 pytestmark = pytest.mark.cuda
 
@@ -529,6 +532,161 @@ def test_fixed_rate_wrappers_make_no_host_sync(cuda):
                          ).to(cuda).view(torch.uint16)
     calls = [lambda name=name: getattr(ktr, name)(x if name.endswith("utf16") else w,
                                                   5000, True) for name in _FIXED]
+    for call in calls:  # build and load the library first
+        call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+# the UTF-32 fixed-rate kernels: name -> (kind, class char, out-of-class
+# values); "from8" takes UTF-8 bytes, "from16" UTF-16 units, "to8" and
+# "to16" UTF-32 words (0x80000000 and up are negative int32)
+_FIXED32 = {
+    "latin1_widen_utf32": ("from8", "a", (0x80, 0xFF)),
+    "uniform2_utf8_to_utf32": ("from8", "é", (0x41, 0xC1)),
+    "uniform3_utf8_to_utf32": ("from8", "東", (0x41, 0xC3)),
+    "astral_utf8_to_utf32": ("from8", "\U0001f642", (0x41, 0xC3)),
+    "uniform2_utf32_to_utf8": ("to8", "é", (0x7F, 0x80000000)),
+    "uniform3_utf32_to_utf8": ("to8", "東", (0xD800, 0xFFFFFFFF)),
+    "astral_utf32_to_utf8": ("to8", "\U0001f642", (0x110000, 0x80000000)),
+    "bmp_widen_utf32": ("from16", "東", (0xD800, 0xDFFF)),
+    "astral_utf16_to_utf32": ("from16", "\U0001f642", (0x41, 0xE000)),
+    "bmp_narrow_utf16": ("to16", "東", (0x10000, 0xDC00)),
+    "astral_utf32_to_utf16": ("to16", "\U0001f642", (0xFFFF, 0xFFFFFFFF)),
+}
+
+
+def _fixed32_elements(name: str, count: int) -> np.ndarray:
+    kind, ch, _ = _FIXED32[name]
+    text = ch * count
+    if kind == "from8":
+        return np.frombuffer(text.encode(), np.uint8)[:count].copy()
+    if kind == "from16":
+        return np.frombuffer(text.encode("utf-16-le"), np.uint16)[:count].copy()
+    return np.frombuffer(text.encode("utf-32-le"), np.uint32)[:count].copy()
+
+
+def _fixed32_width(name: str) -> int:
+    """Input elements a code point."""
+    kind, ch, _ = _FIXED32[name]
+    if kind == "from8":
+        return len(ch.encode())
+    return 2 if kind == "from16" and ord(ch) > 0xFFFF else 1
+
+
+def _inputs_fixed32():
+    """(kernel, case, native elements, be): class text cut to lengths 0-9
+    and around the thread (4 code points) and block (1024 code points)
+    steps, one length past a whole grid's stride, and out-of-class elements
+    at 0, at those steps and at the end; LE and BE for the UTF-16 ones."""
+    out = []
+    for name, (kind, _, bad) in _FIXED32.items():
+        cases = []
+        for count in (0, 1, 2, 3, 4, 5, 7, 8, 9, 15, 17, 1023, 1025, 4097, 50_011, 1_200_007):
+            cases.append((f"len{count}", _fixed32_elements(name, count)))
+        base = _fixed32_elements(name, 50_011)
+        for pos in (0, 3, 4, 15, 16, 1023, 1024, 4095, 4096, 50_010):
+            d = base.copy()
+            d[pos] = bad[pos % 2]
+            cases.append((f"{bad[pos % 2]:#x}@{pos}", d))
+        for be in (False, True) if kind in ("from16", "to16") else (False,):
+            out += [(name, case, d, be) for case, d in cases]
+    return out
+
+
+def _stored32(data: np.ndarray, be: bool, pad: int, cuda):
+    """The elements in storage order with ``pad`` garbage elements past
+    them, on the card."""
+    L = len(data)
+    bits = 8 * data.itemsize
+    buf = np.random.default_rng(L + pad).integers(0, 1 << bits, L + pad, dtype=np.uint64)
+    buf = buf.astype(data.dtype)
+    buf[:L] = data.byteswap() if be and data.dtype == np.uint16 else data
+    if buf.dtype == np.uint8:
+        return torch.from_numpy(buf).to(cuda)
+    if buf.dtype == np.uint16:
+        return torch.from_numpy(buf.view(np.int16)).to(cuda).view(torch.uint16)
+    return torch.from_numpy(buf.view(np.int32)).to(cuda)
+
+
+def _call32(name: str, x, length: int, be: bool, plain: bool = False):
+    fn = getattr(k32, name + "_ref" if plain else name)
+    return fn(x, length, be) if _FIXED32[name][0] in ("from16", "to16") else fn(x, length)
+
+
+@pytest.mark.parametrize("name,case,data,be", _inputs_fixed32(),
+                         ids=[f"{n}-{c}-{'be' if b else 'le'}" for n, c, _, b in _inputs_fixed32()])
+def test_fixed_rate32_kernels_match_plain_versions(cuda, name, case, data, be):
+    x = _stored32(data, be, 13, cuda)  # elements past the length are garbage
+    L = len(data)
+    got = _call32(name, x, L, be)
+    assert _same(got, _call32(name, x, L, be, plain=True))
+    # out-of-class elements flag, and so does a character cut at the length
+    assert int(got[1]) == (not case.startswith("len") or L % _fixed32_width(name) != 0)
+    if L > 1:  # a view off the vector grid takes the element accesses
+        assert _same(_call32(name, x[1:], L - 1, be), _call32(name, x[1:], L - 1, be, plain=True))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("ch", ["a", "é", "東", "\U0001f642"])
+@pytest.mark.parametrize("chars", [1, 3, 5, 1023, 1025, 50_011])
+@pytest.mark.parametrize("be", [False, True])
+def test_fixed_rate32_flag_is_clear_on_census_classes(cuda, ch, chars, be):
+    """Each class the census admits runs its kernel with a clear flag, and
+    the routed calls give CPython's bytes in every direction of UTF-32
+    (UTF-32 -> UTF-8 of ASCII has no kernel)."""
+    text = ch * chars
+    utf8, utf32 = text.encode(), text.encode("utf-32-le")
+    utf16 = text.encode("utf-16-be" if be else "utf-16-le")
+    units, words = len(utf16) // 2, len(utf32) // 4
+    which = {"a": 0, "é": 1, "東": 2, "\U0001f642": 3}[ch]
+    x = _stored32(np.frombuffer(utf8, np.uint8).copy(), False, 7, cuda)
+    w = _stored32(np.frombuffer(text.encode("utf-16-le"), np.uint16).copy(), be, 7, cuda)
+    v = _stored32(np.frombuffer(utf32, np.uint32).copy(), False, 7, cuda)
+    assert o8.census_full(x, len(utf8))[:4] == tuple(i == which for i in range(4))
+    assert o32.census(v, words) == tuple(i == which for i in range(4)) + (which < 3,)
+    assert o16.census32(w, units, be) == (which < 3, which == 3)
+    from8 = ("latin1_widen_utf32", "uniform2_utf8_to_utf32", "uniform3_utf8_to_utf32",
+             "astral_utf8_to_utf32")[which]
+    assert int(_call32(from8, x, len(utf8), be)[1]) == 0
+    if which:
+        to8 = ("uniform2_utf32_to_utf8", "uniform3_utf32_to_utf8", "astral_utf32_to_utf8")[which - 1]
+        assert int(_call32(to8, v, words, be)[1]) == 0
+    bmp = which < 3
+    assert int(_call32("bmp_narrow_utf16" if bmp else "astral_utf32_to_utf16", v, words, be)[1]) == 0
+    assert int(_call32("bmp_widen_utf32" if bmp else "astral_utf16_to_utf32", w, units, be)[1]) == 0
+
+    def check(result, want: bytes, nbytes: int):
+        code, pos, out, out_len = result
+        view = out.view(torch.int16) if out.dtype == torch.uint16 else out
+        raw = view.cpu().numpy().tobytes()
+        assert (int(code), int(out_len) * nbytes) == (0, len(want))
+        assert raw[: len(want)] == want and not any(raw[len(want):])
+
+    check(o8.to_utf32(x, len(utf8)), utf32, 4)
+    check(o32.to_utf8(v, words), utf8, 1)
+    check(o32.to_utf16(v, words, be), utf16, 2)
+    check(o16.to_utf32(w, units, be), utf32, 4)
+    lat = torch.arange(256, dtype=torch.int32, device=cuda).to(torch.uint8).repeat(chars)
+    assert torch.equal(ol1.to_utf32(lat, lat.numel()).cpu(), lat.cpu().to(torch.int32))
+    torch.cuda.synchronize()
+
+
+def test_fixed_rate32_wrappers_make_no_host_sync(cuda):
+    inputs = {"from8": torch.from_numpy(np.frombuffer("é".encode() * 5000, np.uint8).copy()),
+              "from16": torch.from_numpy(np.frombuffer("東".encode("utf-16-le") * 5000, np.int16)
+                                         .copy()).view(torch.uint16),
+              "to8": torch.full((5000,), 0x6771, dtype=torch.int32)}
+    inputs["to16"] = inputs["to8"]
+    inputs = {k: v.to(cuda) for k, v in inputs.items()}
+    calls = [lambda name=name: _call32(name, inputs[_FIXED32[name][0]], 5000, True)
+             for name in _FIXED32]
     for call in calls:  # build and load the library first
         call()
     torch.cuda.synchronize()
