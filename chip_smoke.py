@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
-Eight paths, each driven through the port's own api
+Nine paths, each driven through the port's own api
 (``simdutf_tpu_torch.api`` on "cuda"): UTF-8 -> UTF-16LE/BE with UTF-8
 validation and counts, UTF-16LE/BE -> UTF-8 with UTF-16 validation and
 counts, forgiving base64 decode and encode, UTF-8 <-> UTF-32 with UTF-32
@@ -14,7 +14,10 @@ valid-only converters on invalid input, the capacity-limited base64
 decode), the fixed-rate class branches of UTF-8 <-> UTF-16 (whole
 ASCII, uniform 2- and 3-byte input, and 4-byte UTF-8 -> UTF-16; Latin-1
 -> UTF-16), and those into and out of UTF-32 (UTF-8 <-> UTF-32,
-UTF-16LE/BE <-> UTF-32 of BMP and astral text, Latin-1 -> UTF-32).
+UTF-16LE/BE <-> UTF-32 of BMP and astral text, Latin-1 -> UTF-32), and
+the ``pallas`` tier's own paths on ``TorchPallasImplementation`` (SWAR
+validation with a host rewind, ASCII copy to Latin-1, the clean base64
+decode, its internal_tests).
 Nothing of the JAX package or of jax is imported. Every path runs at its full depth: the whole run takes a
 few minutes of the 20-minute limit. Phases, each fatal on failure:
   1. device  - name, compute capability (must be 9.0), nvidia-smi power limit;
@@ -91,6 +94,20 @@ few minutes of the 20-minute limit. Phases, each fatal on failure:
                <-> UTF-32, and Latin-1 -> UTF-32, against codecs, each call
                launching exactly its census and its kernel (ASCII back to
                UTF-8 only its census);
+     parityp and slicep do the same for the pallas tier: the three SWAR
+               scans on every UTF-8 and UTF-16 parity input (LE and BE),
+               errors at their word, thread and block steps, cut sequences
+               and stale bytes past the length, a 64 MiB ASCII buffer;
+               clean_decode on the whitespace-free base64 of the corpus's
+               first 3/4 (three alphabets, a '=' and a ' ' injected);
+               row_compact at (131072, 128) and (8192, 1024); the probe;
+               then the api through use_device(TorchPallasImplementation):
+               UTF-8, ASCII and UTF-16LE/BE validation, clean and with an
+               error, UTF-8 -> Latin-1 of ASCII, base64 of the clean and
+               the MIME corpus, internal_tests, against TorchImplementation
+               and CPython, each validation launching exactly its SWAR scan
+               and never the safety net, the clean decode exactly
+               clean_decode;
   5. times   - device-resident kernels and the routed calls against their
                plain versions, with CUDA events, the device-to-device copy
                rate, the library yardsticks where one PyTorch call computes
@@ -147,6 +164,10 @@ FIXED32TO8 = (("uniform2_utf32_to_utf8", "é"), ("uniform3_utf32_to_utf8", "東"
 FIXED16TO32 = (("bmp_widen_utf32", "東"), ("astral_utf16_to_utf32", "\U0001f642"))
 FIXED32TO16 = (("bmp_narrow_utf16", "東"), ("astral_utf32_to_utf16", "\U0001f642"))
 PASSEST32 = tuple(k for k, _ in FIXED8TO32 + FIXED32TO8 + FIXED16TO32 + FIXED32TO16)
+#: the kernels of the pallas tier's own paths (kernels/impl.TorchPallasImplementation)
+PASSESP = ("utf8_swar_first_bad_word", "ascii_swar_first_bad_word",
+           "utf16_swar_first_bad_word", "clean_decode", "row_compact",
+           "lane_shapecast_probe")
 KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
     "census_utf8": ("simdutf_tpu_torch/csrc/census.cu",
                     "simdutf_tpu/kernels/census.py:204", []),
@@ -239,6 +260,18 @@ KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
                          ["simdutf_tpu/kernels/transcode.py:726"]),
     "astral_utf32_to_utf16": ("simdutf_tpu_torch/csrc/transcode32.cu",
                               "simdutf_tpu/kernels/transcode.py:1127", []),
+    "utf8_swar_first_bad_word": ("simdutf_tpu_torch/csrc/swar.cu",
+                                 "simdutf_tpu/kernels/swar.py:156", []),
+    "ascii_swar_first_bad_word": ("simdutf_tpu_torch/csrc/swar.cu",
+                                  "simdutf_tpu/kernels/swar.py:198", []),
+    "utf16_swar_first_bad_word": ("simdutf_tpu_torch/csrc/swar.cu",
+                                  "simdutf_tpu/kernels/swar.py:313", []),
+    "clean_decode": ("simdutf_tpu_torch/csrc/base64.cu",
+                     "simdutf_tpu/kernels/base64_kernel.py:126", []),
+    "row_compact": ("simdutf_tpu_torch/csrc/compaction.cu",
+                    "simdutf_tpu/kernels/compaction.py:100", []),
+    "lane_shapecast_probe": ("simdutf_tpu_torch/csrc/probe.cu",
+                             "simdutf_tpu/kernels/validate.py:209", []),
 }
 #: HBM rate of one H100 SXM (NVIDIA's data sheet, at the 700 W limit): the
 #: bound of these kernels, which all stream their bytes
@@ -1822,6 +1855,251 @@ def slicetr32_phase(device, big: int = CORPUS_BYTES) -> dict:
     return total
 
 
+def _swar_injected():
+    """(name, bytes, buffer size, garbage past the length) for the SWAR
+    parity: errors at the word, thread (16 bytes) and block (4096 bytes)
+    steps of the kernel and at the last byte, a 4-byte sequence cut at the
+    length, and stale bytes >= 0x80 stored past the length."""
+    import bench
+
+    base = _whole(bench.mixed_corpus(300_000)[:100_000])
+    out = []
+    for pos in (3, 4, 15, 16, 17, 4095, 4096, 4097, 12_288, len(base) - 1):
+        for bad in (b"\xff", b"\x80", b"\xed\xa0\x80", b"\xc0\xaf"):
+            d = bytearray(base)
+            d[pos:pos + len(bad)] = bad
+            d = bytes(d[:len(base)])
+            out.append((f"{bad.hex()}@{pos}", d, len(d), False))
+    cut = _whole(base[:50_001]) + "\U0001f642".encode()[:3]
+    out.append(("cut4@len", cut, len(cut) + 1, False))
+    out.append(("A*32767-cut4", b"A" * 32767 + b"\xf0\x9f\x98", 32_770, False))
+    out.append(("stale@len", base[:60_000], 60_016, True))
+    return out
+
+
+def parityp_phase(device, big: int = CORPUS_BYTES) -> dict:
+    """The pallas tier's six kernels against their plain versions on
+    ``device``: the UTF-8 and ASCII SWAR scans on every UTF-8 parity input,
+    on errors at the kernel's word, thread and block steps, at the last
+    byte, a cut sequence and stale bytes past the length, and on a 64 MiB
+    ASCII buffer with and without a byte >= 0x80 near its end; the UTF-16
+    SWAR scan on every UTF-16 parity input (LE and BE); clean_decode on the
+    whitespace-free base64 of the corpus's first 3/4 under the three
+    alphabets, and with a '=' and a ' ' injected; row_compact at (131072,
+    128) and (8192, 1024), keep density 0.4; the probe for salts 1-3.
+    Returns the largest error seen per kernel (all must be 0)."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    import bench
+    from simdutf_tpu_torch.kernels import base64_kernel as kb64
+    from simdutf_tpu_torch.kernels import compaction as kcmp
+    from simdutf_tpu_torch.kernels import swar as ksw
+    from simdutf_tpu_torch.kernels import validate as kv
+
+    def record(k, what, kern, plain):
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        e = _max_err(kern, plain)
+        errs[k] = max(errs[k], e)
+        check(e == 0, f"parity {k} on {what}: max abs err {e}")
+
+    errs = dict.fromkeys(PASSESP, 0)
+    high_end = bytearray(b"a" * big)
+    high_end[-5] = 0xE9
+    cases8 = parity_cases(big) + _swar_injected() + [
+        ("ascii-64MiB", b"a" * big, big + 8, False),
+        ("ascii-64MiB-e9@end-5", bytes(high_end), big + 8, True)]
+    flagged = 0
+    for name, data, n, garbage in cases8:
+        L = len(data)
+        buf = np.zeros(n, np.uint8)
+        if garbage:
+            buf[:] = np.random.default_rng(L).integers(0x80, 0x100, n)
+        buf[:L] = np.frombuffer(data, np.uint8)
+        x = torch.from_numpy(buf).to(device)
+        what = f"{name} (n={n}, length={L})"
+        got = ksw.utf8_swar_first_bad_word(x, L)
+        record("utf8_swar_first_bad_word", what, got, ksw.utf8_swar_first_bad_word_ref(x, L))
+        flagged += int(got) != ksw.BIG
+        record("ascii_swar_first_bad_word", what, ksw.ascii_swar_first_bad_word(x, L),
+               ksw.ascii_swar_first_bad_word_ref(x, L))
+    cases16 = parity16_cases(big)
+    for name, units, n, garbage in cases16:
+        L = len(units)
+        buf = _units_buffer(name, units, n, garbage)
+        for be in (False, True):
+            stored = buf.byteswap() if be else buf
+            w = torch.from_numpy(stored.view(np.int16)).to(device).view(torch.uint16)
+            record("utf16_swar_first_bad_word", f"{name} (n={n}, length={L}, be={be})",
+                   ksw.utf16_swar_first_bad_word(w, L, be),
+                   ksw.utf16_swar_first_bad_word_ref(w, L, be))
+    log(f"parityp: {len(cases8)} byte buffers ({flagged} flagged by the UTF-8 scan) and "
+        f"{len(cases16)} unit buffers (LE and BE), the three SWAR scans bit-identical to "
+        f"their plain versions")
+
+    raw = bench.mixed_corpus(big)[: big * 3 // 4]
+    clean = np.frombuffer(base64.b64encode(raw), np.uint8)
+    variants = [("std", clean, False, False), ("std-both", clean, False, True),
+                ("url", np.frombuffer(base64.urlsafe_b64encode(raw), np.uint8), True, False)]
+    for ch, at in ((b"=", len(clean) // 3), (b" ", len(clean) - 7)):
+        d = clean.copy()
+        d[at] = ord(ch)
+        variants.append((f"{ch.decode()!r}@{at}", d, False, False))
+    for name, chars, url, both in variants:
+        x = torch.from_numpy(chars.copy()).to(device)
+        got = kb64.clean_decode(x, len(chars) // 4, url, both)
+        record("clean_decode", f"{name} ({len(chars)} chars)", got,
+               kb64.clean_decode_ref(x, len(chars) // 4, url, both))
+        check(int(got[1]) == ("@" in name), f"clean_decode flag on {name}: {int(got[1])}")
+        if name == "std":
+            check(got[0].cpu().numpy().tobytes() == raw, "clean_decode differs from the raw bytes")
+        del x, got
+    log(f"parityp: clean_decode of {len(clean)} chars (default, both, url; '=' and ' ' "
+        f"injected) bit-identical to its plain version, the flag set on the dirty ones only")
+
+    rng = np.random.default_rng(SEED + 46)
+    for rows, width in ((131_072, 128), (8192, 1024)):
+        val = torch.from_numpy(rng.integers(-2**31, 2**31, (rows, width)).astype(np.int32)).to(device)
+        keep = torch.from_numpy(rng.random((rows, width)) < 0.4).to(device)
+        record("row_compact", f"({rows}, {width})", kcmp.row_compact(val, keep),
+               kcmp.row_compact_ref(val, keep))
+    tile = torch.from_numpy(rng.integers(-2**31, 2**31, (64, 512)).astype(np.int32)).to(device)
+    for salt in (1, 2, 3):
+        record("lane_shapecast_probe", f"salt {salt}", kv.lane_shapecast_probe(tile, salt),
+               kv.lane_shapecast_probe_ref(tile, salt))
+    log("parityp: row_compact at (131072, 128) and (8192, 1024), keep density 0.4, and the "
+        "probe for salts 1-3 bit-identical to their plain versions")
+    return errs
+
+
+def slicep_phase(device, big: int = CORPUS_BYTES) -> dict:
+    """The pallas tier's api on ``device``, through
+    ``use_device(TorchPallasImplementation(device))``: UTF-8 validation of
+    the 64 MiB corpus, clean and with 0xFF 60 MiB in; ASCII validation and
+    UTF-8 -> Latin-1 of a 64 MiB ASCII buffer (validation also with a byte
+    >= 0x80 near its end); UTF-16LE/BE validation of the corpus's units,
+    clean and with a lone low surrogate; base64 decode of the
+    whitespace-free base64 of the corpus's first 3/4 (the clean route) and
+    of its MIME form (the forgiving route); ``internal_tests``. Each result
+    is held against ``TorchImplementation(device)`` and CPython; each call
+    runs with the counts set to 0 just before it and read just after: a
+    validation launches exactly its SWAR scan (no safety net), the clean
+    decode exactly ``clean_decode`` (no ``b64_compact``). Returns the
+    launches of the six kernels summed over these calls."""
+    import base64
+
+    import numpy as np
+
+    import bench
+    from simdutf_tpu_torch import api as su
+    from simdutf_tpu_torch.errors import error_code as ec
+    from simdutf_tpu_torch.impl import TorchImplementation
+    from simdutf_tpu_torch.kernels import _build
+    from simdutf_tpu_torch.kernels.impl import TorchPallasImplementation
+
+    tier = su.use_device(TorchPallasImplementation(device))
+    plain = TorchImplementation(device)
+    total = dict.fromkeys(PASSESP, 0)
+
+    def launched(call, want):
+        _build.reset_launches()
+        got = call()
+        launches = dict(_build.LAUNCHES)
+        check(want is None or launches == want, f"launches {launches}, want {want}")
+        for k in PASSESP:
+            total[k] += launches.get(k, 0)
+        return got, launches
+
+    def codec_error(d: bytes, codec: str):
+        try:
+            d.decode(codec)
+            return None
+        except UnicodeDecodeError as exc:
+            return exc.start
+
+    data = bench.mixed_corpus(big)
+    k8 = lead_at(data, min(60 * MIB, len(data) * 15 // 16))
+    bad8 = data[:k8] + b"\xff" + data[k8 + 1:]
+    swar8 = {"utf8_swar_first_bad_word": 1}
+    for what, d, want in (("corpus", data, (ec.SUCCESS, len(data))),
+                          ("corpus with 0xFF 60 MiB in", bad8, (ec.HEADER_BITS, k8))):
+        res, _ = launched(lambda: su.validate_utf8_with_errors(d), swar8)
+        ok, _ = launched(lambda: su.validate_utf8(d), swar8)
+        ref = plain.validate_utf8_with_errors(np.frombuffer(d, np.uint8))
+        check(tuple(res) == want == tuple(ref) and ok == res.is_ok
+              and codec_error(d, "utf-8") == (None if ok else k8),
+              f"validate_utf8 of the {what}: {res}, TorchImplementation {ref}, want {want}")
+    log(f"slicep: validate_utf8(_with_errors) of {len(data)} B, clean and with 0xFF at {k8}: "
+        f"= TorchImplementation and CPython, one SWAR launch a call")
+
+    asc = class_corpus("a", big)
+    asc_bad = asc[:big - 5] + b"\x80" + asc[big - 4:]
+    swara = {"ascii_swar_first_bad_word": 1}
+    for what, d, want in (("ASCII buffer", asc, (ec.SUCCESS, big)),
+                          ("ASCII buffer with 0x80 at its end - 5", asc_bad, (ec.TOO_LARGE, big - 5))):
+        res, _ = launched(lambda: su.validate_ascii_with_errors(d), swara)
+        ref = plain.validate_ascii_with_errors(np.frombuffer(d, np.uint8))
+        check(tuple(res) == want == tuple(ref)
+              and codec_error(d, "ascii") == (None if res.is_ok else big - 5),
+              f"validate_ascii of the {what}: {res}, TorchImplementation {ref}")
+    (res, out), _ = launched(lambda: su.convert_utf8_to_latin1_with_errors(asc), swara)
+    want_res, want_out = plain.convert_utf8_to_latin1_with_errors(np.frombuffer(asc, np.uint8))
+    check(res == want_res == (ec.SUCCESS, big)
+          and out == want_out.tobytes() == asc.decode("utf-8").encode("latin-1"),
+          f"convert_utf8_to_latin1 of the ASCII buffer: {res}")
+    log(f"slicep: validate_ascii of {big} B of ASCII, clean and with 0x80 at {big - 5}, and "
+        f"convert_utf8_to_latin1 of it (a copy): = TorchImplementation and CPython")
+
+    units = np.frombuffer(data.decode("utf-8").encode("utf-16-le"), np.uint16)
+    bad16 = units.copy()
+    k16 = len(bad16) * 3 // 5
+    while (bad16[k16 - 1] & 0xFC00) == 0xD800 or (bad16[k16] & 0xF800) == 0xD800:
+        k16 += 1
+    bad16[k16] = 0xDC00
+    for what, u, want in (("units", units, (ec.SUCCESS, len(units))),
+                          (f"units with a lone low at {k16}", bad16, (ec.SURROGATE, k16))):
+        for end, be in (("le", False), ("be", True)):
+            stored = u.byteswap() if be else u
+            res, _ = launched(
+                lambda: getattr(su, f"validate_utf16{end}_with_errors")(stored.tobytes()),
+                {"utf16_swar_first_bad_word": 1})
+            ref = plain._validate16(stored, be)
+            at = codec_error(stored.tobytes(), f"utf-16-{end}")
+            check(tuple(res) == want == tuple(ref)
+                  and at == (None if res.is_ok else 2 * k16),
+                  f"validate_utf16{end} of the {what}: {res}, TorchImplementation {ref}")
+    log(f"slicep: validate_utf16le/be of {len(units)} units, clean and with a lone low at "
+        f"{k16}: = TorchImplementation and CPython, one SWAR launch a call")
+
+    raw, mime = mime_corpus(big)
+    clean = base64.b64encode(raw)
+    (full, out), _ = launched(lambda: su.base64_to_binary_details(clean), {"clean_decode": 1})
+    ref_full, ref_out = plain.base64_to_binary_details(np.frombuffer(clean, np.uint8))
+    check(full == ref_full and full.is_ok and out == ref_out.tobytes() == raw,
+          f"clean base64 decode {full}, TorchImplementation {ref_full}")
+    (full, out), mime_launches = launched(lambda: su.base64_to_binary_details(mime), None)
+    ref_full, ref_out = plain.base64_to_binary_details(np.frombuffer(mime, np.uint8))
+    check(full == ref_full and full.is_ok and out == ref_out.tobytes() == raw
+          and mime_launches.get("b64_compact", 0) > 0,
+          f"MIME base64 decode {full}, TorchImplementation {ref_full}, launches {mime_launches}")
+    log(f"slicep: base64 of {len(raw)} B = base64.b64decode: clean ({len(clean)} chars) through "
+        f"clean_decode alone, MIME ({len(mime)} chars) through the forgiving route "
+        f"(launches {mime_launches}); both = TorchImplementation")
+
+    checks, launches = launched(lambda: [(name, fn()) for name, fn in tier.internal_tests()],
+                                None)
+    log(f"slicep: internal_tests {[name for name, _ in checks]} passed; launches {launches}")
+    check(tier.safety_net == 0, f"the SWAR safety net was entered {tier.safety_net} times")
+    for k in PASSESP:
+        check(total[k] > 0, f"kernel {k} did not launch on the main path")
+    log(f"slicep: safety net entered {tier.safety_net} times; launches {total}")
+    su.use_device(device)
+    return total
+
+
 def cuda_ms(fn, iters: int = 10, trials: int = 7) -> float:
     """Median over trials of the mean time of ``iters`` calls, by CUDA
     events, after one warm-up call."""
@@ -2346,6 +2624,134 @@ def timestr32_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dic
     return ms, moved, library
 
 
+def timesp_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dict]:
+    """ms of each pallas-tier kernel and of its plain version at its path's
+    shapes, device-resident: the UTF-8 SWAR scan on the 64 MiB corpus (the
+    exact event kernel on the same bytes beside it), the ASCII scan on the
+    64 MiB ASCII buffer (``torch.amax`` over it as the library yardstick:
+    the yes/no half), the UTF-16 scan on the corpus's units in their
+    64 Mi-unit bucket, clean_decode on the clean base64 in its bucket,
+    row_compact at (131072, 128) ((8, 128), the shape internal_tests gives
+    it, logged), the probe on its tile; then the routed UTF-8 validation
+    of the tier (SWAR, one sync, the host rewind when it flags) beside the
+    torch tier's (the event kernel), clean and with 0xFF 60 MiB in, and
+    a torch.profiler breakdown of each."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    import bench
+    from simdutf_tpu_torch import impl
+    from simdutf_tpu_torch import validate_host as vh
+    from simdutf_tpu_torch.kernels import base64_kernel as kb64
+    from simdutf_tpu_torch.kernels import compaction as kcmp
+    from simdutf_tpu_torch.kernels import swar as ksw
+    from simdutf_tpu_torch.kernels import validate as kv
+    from simdutf_tpu_torch.ops import utf8 as o8
+
+    data = bench.mixed_corpus(big)
+    x, L = impl.to_device(*impl._pad(np.frombuffer(data, np.uint8)), "cuda")
+    a, A = impl.to_device(*impl._pad(np.frombuffer(class_corpus("a", big), np.uint8)), "cuda")
+    w, U = impl.to_device(*impl._pad(np.frombuffer(data.decode("utf-8").encode("utf-16-le"),
+                                                   np.uint16)), "cuda")
+    raw = data[: big * 3 // 4]
+    c, C = impl.to_device(*impl._pad(np.frombuffer(base64.b64encode(raw), np.uint8)), "cuda")
+    rng = np.random.default_rng(SEED + 46)
+    val = torch.from_numpy(rng.integers(-2**31, 2**31, (131_072, 128)).astype(np.int32)).cuda()
+    keep = torch.from_numpy(rng.random((131_072, 128)) < 0.4).cuda()
+    keep32 = keep.to(torch.int32)
+    tile = torch.from_numpy(rng.integers(-2**31, 2**31, (64, 512)).astype(np.int32)).cuda()
+    torch.cuda.synchronize()
+    ms = _time_pairs({
+        "utf8_swar_first_bad_word": (lambda: ksw.utf8_swar_first_bad_word(x, L),
+                                     lambda: ksw.utf8_swar_first_bad_word_ref(x, L)),
+        "utf8_first_event (same bytes)": (lambda: kv.utf8_first_event_len(x, L),
+                                          lambda: kv.utf8_first_event_len_ref(x, L)),
+    }, L, card)
+    ms.update(_time_pairs({
+        "ascii_swar_first_bad_word": (lambda: ksw.ascii_swar_first_bad_word(a, A),
+                                      lambda: ksw.ascii_swar_first_bad_word_ref(a, A)),
+    }, A, card))
+    library = {"ascii_swar_first_bad_word": cuda_ms(lambda: torch.amax(a[:A]))}
+    log(f"time library torch.amax over the {A} B ASCII buffer: "
+        f"{library['ascii_swar_first_bad_word']:.4f} ms [{card}]")
+    ms.update(_time_pairs({
+        "utf16_swar_first_bad_word": (lambda: ksw.utf16_swar_first_bad_word(w, U, False),
+                                      lambda: ksw.utf16_swar_first_bad_word_ref(w, U, False)),
+    }, 2 * U, card))
+    ms.update(_time_pairs({
+        "clean_decode": (lambda: kb64.clean_decode(c, C // 4),
+                         lambda: kb64.clean_decode_ref(c, C // 4)),
+    }, c.numel(), card))
+    ms.update(_time_pairs({
+        "row_compact": (lambda: kcmp.row_compact(val, keep32),
+                        lambda: kcmp.row_compact_ref(val, keep32)),
+    }, 8 * val.numel(), card))
+    _time_pairs({
+        "row_compact (8, 128)": (lambda: kcmp.row_compact(val[:8], keep32[:8]),
+                                 lambda: kcmp.row_compact_ref(val[:8], keep32[:8])),
+    }, 8 * 8 * 128, card)
+    ms.update(_time_pairs({
+        "lane_shapecast_probe": (lambda: kv.lane_shapecast_probe(tile, 1),
+                                 lambda: kv.lane_shapecast_probe_ref(tile, 1)),
+    }, 4 * tile.numel(), card))
+
+    # the routed validation: the tier's SWAR scan + one sync (+ the host
+    # rewind of a flagged word) beside the torch tier's event kernel + sync
+    k8 = lead_at(data, min(60 * MIB, len(data) * 15 // 16))
+    bad_np = np.frombuffer(data[:k8] + b"\xff" + data[k8 + 1:], np.uint8)
+    xb, _ = impl.to_device(*impl._pad(bad_np), "cuda")
+    torch.cuda.synchronize()
+
+    def swar_route(buf, host):
+        word = int(ksw.utf8_swar_first_bad_word(buf, L))
+        if word == ksw.BIG:
+            return None
+        fb = word * 4
+        start, back = max(fb - 8, 0), 0
+        while start > 0 and back < 3 and (int(host[start]) & 0xC0) == 0x80:
+            start, back = start - 1, back + 1
+        return vh.validate_utf8_with_errors(host[start:min(fb + 16, L)])
+
+    def event_route(buf):
+        return torch.stack(o8.validate_with_errors(buf, L)).tolist()
+
+    host = np.frombuffer(data, np.uint8)
+    ms.update(_time_pairs({
+        "validate_utf8_with_errors (pallas tier, SWAR + rewind)": (
+            lambda: swar_route(x, host), lambda: event_route(x)),
+        "validate_utf8_with_errors (pallas tier, 0xFF 60 MiB in)": (
+            lambda: swar_route(xb, bad_np), lambda: event_route(xb)),
+    }, L, card))
+    log("(the routed rows' 'plain' column is the torch tier's event route, not a plain version)")
+    from simdutf_tpu_torch.kernels.impl import TorchPallasImplementation
+
+    tier, plain = TorchPallasImplementation("cuda"), impl.TorchImplementation("cuda")
+    for what, arr in (("corpus", host), ("corpus, 0xFF 60 MiB in", bad_np)):
+        for name, fn in (("pallas tier", tier.validate_utf8_with_errors),
+                         ("torch tier", plain.validate_utf8_with_errors)):
+            fn(arr)
+            clock = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn(arr)
+                clock.append((time.perf_counter() - t0) * 1e3)
+            log(f"host clock api validate_utf8_with_errors ({name}, {what}, staging copy "
+                f"included): {statistics.median(clock):.3f} ms median of 5 [{card}]")
+    breakdown(lambda: swar_route(x, host), f"pallas-tier validate_utf8 ({L} B corpus)", card)
+    breakdown(lambda: event_route(x), f"torch-tier validate_utf8 ({L} B corpus)", card)
+    breakdown(lambda: swar_route(xb, bad_np), f"pallas-tier validate_utf8, 0xFF at {k8}", card)
+    breakdown(lambda: kb64.clean_decode(c, C // 4), f"clean_decode ({C} chars)", card)
+    breakdown(lambda: kcmp.row_compact(val, keep32), "row_compact (131072, 128)", card)
+    moved = {"utf8_swar_first_bad_word": L, "ascii_swar_first_bad_word": A,
+             "utf16_swar_first_bad_word": 2 * U, "clean_decode": c.numel() // 4 * 7,
+             "row_compact": 12 * val.numel() + 4 * val.shape[0],
+             "lane_shapecast_probe": 8 * tile.numel()}
+    log(f"bytes: {moved}")
+    return ms, moved, library
+
+
 def breakdown(fn, what: str, card: str, iters: int = 20) -> None:
     """Device time per call of each kernel ``fn`` runs, and the device's
     busy share of the window, from torch.profiler."""
@@ -2408,6 +2814,8 @@ def main() -> int:
         launchest = slicetr_phase("cuda")
         errs.update(paritytr32_phase("cuda"))
         launchest32 = slicetr32_phase("cuda")
+        errs.update(parityp_phase("cuda"))
+        launchesp = slicep_phase("cuda")
         rate = copy_phase(card)
         ms, moved = times_phase(card)
         for phase in (times64_phase, times32_phase, timesx_phase):
@@ -2417,7 +2825,7 @@ def main() -> int:
         more_ms, more_moved, library = timesu_phase(card)
         ms.update(more_ms)
         moved.update(more_moved)
-        for phase in (timestr_phase, timestr32_phase):
+        for phase in (timestr_phase, timestr32_phase, timesp_phase):
             more_ms, more_moved, more_library = phase(card)
             ms.update(more_ms)
             moved.update(more_moved)
@@ -2430,7 +2838,8 @@ def main() -> int:
         return 1
     paths = ((launches8, PASSES), (launches16, PASSES16),
              (launches64, PASSES64), (launches32, PASSES32), (launchesx, PASSESX),
-             (launchesu, PASSESU), (launchest, PASSEST), (launchest32, PASSEST32))
+             (launchesu, PASSESU), (launchest, PASSEST), (launchest32, PASSEST32),
+             (launchesp, PASSESP))
     launches = {k: got[k] for got, path in paths for k in path}
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],

@@ -1,6 +1,7 @@
 // Forgiving base64 on Hopper: whitespace compaction of the sextet code
 // stream (b64_compact), the fixed-rate 4 -> 3 repack (b64_pack) and the
-// fixed-rate 3 -> 4 encode (b64_encode).
+// fixed-rate 3 -> 4 encode (b64_encode); and the clean decode of
+// whitespace-free input (clean_decode).
 //
 // b64_compact replaces the Pallas kernel _phase_b64_kernel
 // (simdutf_tpu/kernels/butterfly64.py) together with the phase C16
@@ -27,6 +28,16 @@
 // _encode_kernel (block_encode): 3 bytes -> 4 alphabet chars, with the
 // compares of _unclassify. One thread turns 16 codes (one 16-byte load)
 // into 12 bytes, or 12 bytes into 16 chars (one 16-byte store).
+//
+// clean_decode replaces _decode_kernel (base64_kernel._clean_decode_pallas;
+// core _decode_core, _classify, _mix_planes): each 4-char word -> 3 bytes,
+// the chars classified by _classify's range compares (default, url or both
+// alphabets; 255 for whitespace, '=' and garbage alike), a flag for any
+// char outside the alphabet, and the words at/after nwords decoded as
+// "AAAA" (zeros, no flag). The TPU builds each output word from stride-4
+// phase planes to avoid lane gathers; here a thread decodes 4 words from
+// one 16-byte load into three 4-byte stores. It reads 4 and writes 3 bytes
+// a word.
 //
 // Floor: HBM bytes. Compaction reads the chars twice (count and emit pass)
 // and writes the dense codes; the pack reads them once more and writes
@@ -207,6 +218,73 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// 4 chars (one little-endian word) -> 4 value bytes of _classify: the
+// alphabet value, 255 for anything else (whitespace and '=' too); the
+// word's chars are all in the alphabet when no byte exceeds 63
+__device__ __forceinline__ uint32_t classify4(uint32_t w, bool url, bool both) {
+  uint32_t v = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = classify((w >> (8 * i)) & 0xFF, url, both);
+    v |= (uint32_t)(c == SKIP ? INVALID : c) << (8 * i);
+  }
+  return v;
+}
+
+// One thread per 4 char words (one 16-byte load, three 4-byte stores of
+// 12 output bytes); words at/after nwords read as "AAAA" (zeros out, no
+// flag); one atomicOr per block that saw a char outside the alphabet.
+__global__ void __launch_bounds__(THREADS)
+    clean_decode_kernel(const uint8_t* __restrict__ chars, long long words,
+                        long long nwords, int url, int both,
+                        uint8_t* __restrict__ out, int* __restrict__ flag) {
+  const long long chunks = (words + 3) / 4;
+  const bool vec = aligned(chars, 16) && aligned(out, 4);
+  int bad = 0;
+  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       k < chunks; k += (long long)gridDim.x * blockDim.x) {
+    uint32_t w[4];
+    if (vec && 4 * k + 4 <= words) {
+      const uint4 m = *reinterpret_cast<const uint4*>(chars + 16 * k);
+      w[0] = m.x;
+      w[1] = m.y;
+      w[2] = m.z;
+      w[3] = m.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const long long g = 4 * k + i;
+        w[i] = g < words ? chars[4 * g] | (chars[4 * g + 1] << 8) |
+                               (chars[4 * g + 2] << 16) |
+                               ((uint32_t)chars[4 * g + 3] << 24)
+                         : 0x41414141u;
+      }
+    }
+    uint32_t y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t v = classify4(4 * k + i < nwords ? w[i] : 0x41414141u,
+                                   url, both);
+      bad |= (v & 0xC0C0C0C0u) != 0;  // some value > 63
+      y[i] = pack4(v);
+    }
+    if (vec && 4 * k + 4 <= words) {
+      uint32_t* o = reinterpret_cast<uint32_t*>(out + 12 * k);
+      o[0] = y[0] | (y[1] << 24);
+      o[1] = (y[1] >> 8) | (y[2] << 16);
+      o[2] = (y[2] >> 16) | (y[3] << 8);
+    } else {
+      for (long long g = 4 * k; g < 4 * k + 4 && g < words; ++g) {
+        const uint32_t q = y[g - 4 * k];
+        out[3 * g] = q & 0xFF;
+        out[3 * g + 1] = (q >> 8) & 0xFF;
+        out[3 * g + 2] = q >> 16;
+      }
+    }
+  }
+  if (__syncthreads_or(bad) && threadIdx.x == 0) atomicOr(flag, 1);
+}
+
 // base64_kernel._unclassify: a 6-bit value -> its alphabet char
 __device__ __forceinline__ uint32_t unclassify(uint32_t v, bool url) {
   uint32_t c = v + 65;
@@ -316,6 +394,19 @@ extern "C" int b64_pack(const uint8_t* codes, long long groups, uint8_t* out,
                         void* stream) {
   pack_kernel<<<su::grid_for((groups + 3) / 4), THREADS, 0,
                 (cudaStream_t)stream>>>(codes, groups, out);
+  return (int)cudaGetLastError();
+}
+
+// Clean decode of ``nwords`` whole 4-char words of ``chars`` (``words`` =
+// its size / 4 >= nwords): out gets 3 bytes a word, zeros from word
+// nwords on; flag, one zeroed int32 on the device, becomes 1 when an
+// in-range char is outside the alphabet. Returns cudaGetLastError().
+extern "C" int clean_decode(const uint8_t* chars, long long words,
+                            long long nwords, int url, int both, uint8_t* out,
+                            int* flag, void* stream) {
+  clean_decode_kernel<<<su::grid_for((words + 3) / 4), THREADS, 0,
+                        (cudaStream_t)stream>>>(chars, words, nwords, url, both,
+                                                out, flag);
   return (int)cudaGetLastError();
 }
 

@@ -12,8 +12,12 @@ wrappers keep the JAX signatures. On a CUDA tensor :func:`pack` and
 :func:`encode` launch their kernels; on a CPU tensor they run
 :func:`pack_ref` and :func:`encode_ref`.
 
-``clean_decode`` (``_decode_kernel``) is not here: only the JAX package's
-``PallasImplementation`` reaches it.
+``clean_decode`` ports ``_clean_decode_pallas`` (``_decode_kernel``): the
+4 -> 3 decode of whitespace-free char words with a flag for any char
+outside the alphabet, on ``clean_decode`` in csrc/base64.cu (plain
+version :func:`clean_decode_ref`). Only ``kernels.impl
+.TorchPallasImplementation`` reaches it, as only the JAX package's
+``PallasImplementation`` reaches the Pallas kernel.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ..ops.common import positions
 
 
 def pack_ref(codes: torch.Tensor) -> torch.Tensor:
@@ -102,3 +107,44 @@ def block_encode(x32: torch.Tensor, url: bool = False) -> torch.Tensor:
     """(R, 384) int32 view of the payload -> (R, 512) int32 char stream
     (4 chars per word), as base64_kernel.block_encode."""
     return encode(_flat(x32), url).view(torch.int32).reshape(x32.shape[0], 512)
+
+
+def clean_decode_ref(chars: torch.Tensor, nwords: int, url: bool = False,
+                     both: bool = False):
+    """Plain version of :func:`clean_decode` (base64_kernel._decode_core):
+    the forgiving decode's classifier with whitespace (64 there) as 255,
+    the Pallas ``_classify``."""
+    from ..ops.base64_ops import classify_chars
+
+    c = chars.to(torch.int32).view(-1, 4)
+    live = (positions(c.shape[0], c.device) < nwords)[:, None]
+    v = classify_chars(torch.where(live, c, 65), url, both)
+    v = torch.where(v == 64, 255, v)
+    flag = (v > 63).any().to(torch.int32)
+    t = (v[:, 0] << 18) | (v[:, 1] << 12) | (v[:, 2] << 6) | v[:, 3]
+    out = torch.stack([(t >> 16) & 0xFF, (t >> 8) & 0xFF, t & 0xFF], dim=1)
+    return out.reshape(-1).to(torch.uint8), flag
+
+
+def clean_decode(chars: torch.Tensor, nwords: int, url: bool = False,
+                 both: bool = False):
+    """uint8[n] chars (n % 4 == 0) -> (uint8[3n/4], flag): each 4-char word
+    below ``nwords`` decoded to its 3 bytes under the default, url or
+    (``both``) either alphabet, the words from ``nwords`` on decoded as
+    "AAAA" (zeros); ``flag`` a 0-d int32 tensor, 1 when a char of a word
+    below ``nwords`` is outside the alphabet (whitespace and '=' too: the
+    caller then takes the forgiving decode), left on the device. The
+    Pallas function's (R, 384) int32 output is this byte stream."""
+    n = chars.shape[0]
+    nwords = int(nwords)
+    if n % 4 or not 0 <= nwords <= n // 4:
+        raise ValueError(f"clean_decode needs n % 4 == 0 and 0 <= nwords <= n / 4, "
+                         f"got n={n}, nwords={nwords}")
+    if _build.check_bytes(chars, n) == "cpu":
+        return clean_decode_ref(chars, nwords, url, both)
+    out = torch.empty(n // 4 * 3, dtype=torch.uint8, device=chars.device)
+    flag = torch.zeros(1, dtype=torch.int32, device=chars.device)
+    _build.call("clean_decode", chars.data_ptr(), n // 4, nwords, int(url), int(both),
+                out.data_ptr(), flag.data_ptr())
+    _build.count_launch("clean_decode")
+    return out, flag[0]

@@ -20,6 +20,10 @@ no order, so each warp reduces its threads and makes one atomic update (a
 
 Inputs are flat 1-D uint8 tensors, or int32 tensors of UTF-32 words; the
 TPU's (R + 64, 512) and (R, 512) row layouts are not needed here.
+
+``lane_shapecast_probe`` computes the function of the inline probe kernel
+of ``lane_shapecast_supported`` (csrc/probe.cu), for the port's
+``internal_tests``; the port has no Mosaic toolchain to probe.
 """
 
 from __future__ import annotations
@@ -181,3 +185,34 @@ def utf32_count(w: torch.Tensor, length: int, what: str) -> torch.Tensor:
     _build.call("utf32_count", w.data_ptr(), length, mode, out.data_ptr())
     _build.count_launch("utf32_count")
     return out[0]
+
+
+# -- the lane shape-cast probe: port of the inline kernel ``k`` of
+# validate.lane_shapecast_supported; csrc/probe.cu -----------------------
+
+def lane_shapecast_probe_ref(x: torch.Tensor, salt: int) -> torch.Tensor:
+    """Plain version of :func:`lane_shapecast_probe`."""
+    q = (x.to(torch.int32) ^ salt).reshape(-1, 4)
+    a = q[:, 0] ^ q[:, 3]
+    b = q[:, 1] ^ q[:, 2]
+    return torch.stack([a, b, a, b], dim=1).reshape(x.shape)
+
+
+def lane_shapecast_probe(x: torch.Tensor, salt: int) -> torch.Tensor:
+    """(R, C) int32, C % 4 == 0 -> (R, C) int32: ``x ^ salt``, then in each
+    quad q0..q3 of a row the lanes ``q0 ^ q3, q1 ^ q2, q0 ^ q3, q1 ^ q2``
+    (the probe's k=4 split, k=2 interleave and split, k=4 interleave; on
+    its (64, 512) tile)."""
+    if x.dtype != torch.int32 or x.dim() != 2 or x.shape[1] % 4 or not x.is_contiguous():
+        raise ValueError(f"expected a contiguous (R, 4k) int32 tensor, got "
+                         f"{x.dtype}{tuple(x.shape)}")
+    if _build.check_words(x.view(-1), x.numel()) == "cpu":
+        return lane_shapecast_probe_ref(x, salt)
+    if x.data_ptr() % 16:
+        raise ValueError("lane_shapecast_probe needs a 16-byte aligned tensor")
+    out = torch.empty_like(x)
+    if x.numel():
+        _build.call("lane_shapecast_probe", x.data_ptr(), x.numel() // 4, int(salt),
+                    out.data_ptr())
+        _build.count_launch("lane_shapecast_probe")
+    return out

@@ -17,11 +17,13 @@ import torch
 from simdutf_tpu_torch.kernels import base64_kernel as kb
 from simdutf_tpu_torch.kernels import census as kcen
 from simdutf_tpu_torch.kernels import compact64 as kc64
+from simdutf_tpu_torch.kernels import compaction as kcmp
 from simdutf_tpu_torch.kernels import compose8 as kc8
 from simdutf_tpu_torch.kernels import compose16 as kc
 from simdutf_tpu_torch.kernels import compose32 as kc32
 from simdutf_tpu_torch.kernels import composex as kcx
 from simdutf_tpu_torch.kernels import detect_kernel as kdet
+from simdutf_tpu_torch.kernels import swar as ksw
 from simdutf_tpu_torch.kernels import transcode as ktr
 from simdutf_tpu_torch.kernels import transcode32 as k32
 from simdutf_tpu_torch.kernels import utf16_kernels as k16
@@ -697,3 +699,125 @@ def test_fixed_rate32_wrappers_make_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+# -- the pallas tier's kernels: SWAR, clean decode, row compaction, probe ---
+
+def _inputs_swar():
+    """(case, bytes): errors at the word, thread (16 bytes) and block (4096
+    bytes) steps, at the last byte, a 4-byte sequence cut at the length."""
+    base = "a é 東 \U0001f642 ".encode() * 2000
+    out = [("valid", base), ("empty", b""), ("cut4@len", base[:9000] + "\U0001f642".encode()[:3]),
+           ("A*32767-cut", b"A" * 32767 + b"\xf0\x9f\x98")]
+    for pos in (0, 3, 4, 15, 16, 4095, 4096, 4097, 8191, len(base) - 1):
+        for bad in (b"\xff", b"\x80", b"\xed\xa0\x80"):
+            d = bytearray(base)
+            d[pos:pos + len(bad)] = bad
+            out.append((f"{bad.hex()}@{pos}", bytes(d[:len(base)])))
+    return out
+
+
+@pytest.mark.parametrize("case,data", _inputs_swar(), ids=[c for c, _ in _inputs_swar()])
+def test_swar_utf8_and_ascii_match_plain_versions(cuda, case, data):
+    x = _stored(np.frombuffer(data, np.uint8).copy(), False, 11, cuda)  # garbage past the length
+    L = len(data)
+    for fn, ref in ((ksw.utf8_swar_first_bad_word, ksw.utf8_swar_first_bad_word_ref),
+                    (ksw.ascii_swar_first_bad_word, ksw.ascii_swar_first_bad_word_ref)):
+        assert int(fn(x, L)) == int(ref(x, L))
+        if L > 1:  # a view off the 16-byte grid takes the word loads
+            assert int(fn(x[1:], L - 1)) == int(ref(x[1:], L - 1))
+    torch.cuda.synchronize()
+
+
+def _inputs_swar16():
+    base = np.frombuffer(("a é 東 \U0001f642 " * 1500).encode("utf-16-le"), np.uint16)
+    out = [("valid", base.copy()), ("hi@len-1", base[:-1].copy())]
+    for pos in (0, 1, 7, 8, 2047, 2048, 2049, len(base) - 1):
+        for bad in (0xD800, 0xDC00):
+            d = base.copy()
+            d[pos] = bad
+            out.append((f"{bad:04x}@{pos}", d))
+    return out
+
+
+@pytest.mark.parametrize("case,units", _inputs_swar16(), ids=[c for c, _ in _inputs_swar16()])
+@pytest.mark.parametrize("be", [False, True])
+def test_swar_utf16_matches_plain_version(cuda, case, units, be):
+    w = _stored(units, be, 5, cuda)
+    L = len(units)
+    assert int(ksw.utf16_swar_first_bad_word(w, L, be)) == int(
+        ksw.utf16_swar_first_bad_word_ref(w, L, be))
+    assert int(ksw.utf16_swar_first_bad_word(w[1:], L - 1, be)) == int(
+        ksw.utf16_swar_first_bad_word_ref(w[1:], L - 1, be))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("url,both", [(False, False), (True, False), (False, True)])
+@pytest.mark.parametrize("case", ["clean", "short-nwords", "eq", "space", "ragged-view"])
+def test_clean_decode_matches_plain_version(cuda, url, both, case):
+    raw = np.random.default_rng(7).integers(0, 256, 60_000, dtype=np.uint8).tobytes()
+    chars = bytearray(pyb64.urlsafe_b64encode(raw) if url else pyb64.b64encode(raw))
+    nwords = len(chars) // 4
+    if case == "short-nwords":
+        nwords -= 1001
+    elif case == "eq":
+        chars[40_001] = ord("=")
+    elif case == "space":
+        chars[len(chars) - 1] = ord(" ")
+    x = torch.from_numpy(np.frombuffer(bytes(chars), np.uint8).copy()).to(cuda)
+    if case == "ragged-view":
+        x, nwords = x[4:], nwords - 1
+    got = kb.clean_decode(x, nwords, url, both)
+    assert _same(got, kb.clean_decode_ref(x, nwords, url, both))
+    assert int(got[1]) == (case in ("eq", "space"))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("rows,width", [(8, 128), (4, 256), (3, 1), (5, 32), (6, 64),
+                                        (2, 4096), (1000, 128)])
+@pytest.mark.parametrize("density", [0.0, 0.4, 1.0])
+def test_row_compact_matches_plain_version(cuda, rows, width, density):
+    rng = np.random.default_rng(rows * width)
+    val = torch.from_numpy(rng.integers(-2**31, 2**31, (rows, width)).astype(np.int32)).to(cuda)
+    keep = torch.from_numpy(rng.random((rows, width)) < density).to(cuda)
+    assert _same(kcmp.row_compact(val, keep), kcmp.row_compact_ref(val, keep))
+    three = torch.zeros((rows, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        kcmp.row_compact(three, three)
+    torch.cuda.synchronize()
+
+
+def test_lane_shapecast_probe(cuda):
+    tile = np.random.default_rng(9).integers(-2**31, 2**31, (64, 512)).astype(np.int32)
+    x = torch.from_numpy(tile).to(cuda)
+    for salt in (1, 2, 3):
+        assert torch.equal(kv.lane_shapecast_probe(x, salt), kv.lane_shapecast_probe_ref(x, salt))
+    torch.cuda.synchronize()
+
+
+def test_pallas_tier_internal_tests_pass(cuda):
+    from simdutf_tpu_torch.kernels.impl import TorchPallasImplementation
+
+    for _, check in TorchPallasImplementation("cuda").internal_tests():
+        check()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case,data", _inputs_swar()[:14], ids=[c for c, _ in _inputs_swar()[:14]])
+def test_pallas_tier_matches_the_torch_tier(cuda, case, data):
+    from simdutf_tpu_torch import impl
+    from simdutf_tpu_torch.kernels.impl import TorchPallasImplementation
+
+    tier, plain = TorchPallasImplementation("cuda"), impl.TorchImplementation("cuda")
+    b = np.frombuffer(data, np.uint8)
+    for method in ("validate_utf8", "validate_utf8_with_errors", "validate_ascii_with_errors"):
+        assert getattr(tier, method)(b) == getattr(plain, method)(b), method
+    units = np.frombuffer(data.decode("utf-8", "replace").encode("utf-16-le"), np.uint16)
+    for be in (False, True):
+        w = units.byteswap() if be else units
+        assert tier._validate16(w, be) == plain._validate16(w, be)
+    enc = np.frombuffer(pyb64.b64encode(data), np.uint8)
+    full, out = tier.base64_to_binary_details(enc)
+    want_full, want_out = plain.base64_to_binary_details(enc)
+    assert full == want_full and np.array_equal(out, want_out)
+    assert tier.safety_net == 0

@@ -3,8 +3,9 @@
 Every ``.py`` under ``simdutf_tpu_torch/`` and ``chip_smoke.py`` is parsed
 with ``ast``, and any import of a ``jax*`` module or of ``simdutf_tpu`` (at
 any depth of the file) fails. Then, in a fresh process, every public
-function of ``simdutf_tpu_torch.api`` runs on ``"cpu"``, and no module of
-those names may be loaded afterwards.
+function of ``simdutf_tpu_torch.api`` runs on ``"cpu"``, and so do
+``TorchPallasImplementation("cpu")``'s ``internal_tests`` and the methods
+it overrides; no module of those names may be loaded afterwards.
 """
 
 import ast
@@ -118,3 +119,43 @@ def test_every_api_function_runs_without_jax_or_the_jax_package():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.split()[-1] == str(len(names))
+
+
+_PALLAS_SCRIPT = r'''
+import base64
+import sys
+import numpy as np
+from simdutf_tpu_torch.kernels.impl import TorchPallasImplementation
+
+impl = TorchPallasImplementation("cpu")
+for name, check in impl.internal_tests():
+    check()
+text = "a é 東 \U0001f642 " * 50
+b = np.frombuffer(text.encode() + b"\xff", np.uint8)
+w = np.frombuffer(text.encode("utf-16-le"), np.uint16)
+assert impl.validate_utf8_with_errors(b) == (1, len(b) - 1) and not impl.validate_utf8(b)
+assert impl.validate_ascii_with_errors(b) == (5, 2) and not impl.validate_ascii(b)
+assert impl.validate_utf16le(w) and impl.validate_utf16be_with_errors(w.byteswap()) == (0, len(w))
+h = w[:-2]  # the last pair cut after its high surrogate
+assert not impl.validate_utf16le(h) and not impl.validate_utf16be(h.byteswap())
+assert impl.validate_utf16le_with_errors(h) == (6, len(h) - 1)
+a = np.frombuffer(b"ascii", np.uint8)
+assert impl.convert_valid_utf8_to_latin1(a).tobytes() == b"ascii"
+assert impl.convert_utf8_to_latin1_with_errors(a)[1].tobytes() == b"ascii"
+full, out = impl.base64_to_binary_details(np.frombuffer(base64.b64encode(b"hello"), np.uint8))
+assert full.is_ok and out.tobytes() == b"hello"
+assert impl.safety_net == 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0].startswith("jax") or m.split(".")[0] == "simdutf_tpu")
+assert not bad, bad
+print("ok")
+'''
+
+
+def test_pallas_tier_runs_without_jax_or_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", _PALLAS_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split()[-1] == "ok"
