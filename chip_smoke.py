@@ -2,6 +2,11 @@
 """Smoke run of the PyTorch / H100 port (simdutf_tpu_torch) on one card.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
+    python3 chip_smoke.py --fixed-rate-times [--root DIR]
+                                 # only the fixed-rate kernels' and casts'
+                                 # times (events and device rows), of the
+                                 # package in DIR: run a parent tree and
+                                 # this one in turns to compare them
 
 Nine paths, each driven through the port's own api
 (``simdutf_tpu_torch.api`` on "cuda"): UTF-8 -> UTF-16LE/BE with UTF-8
@@ -111,11 +116,15 @@ few minutes of the 20-minute limit. Phases, each fatal on failure:
   5. times   - device-resident kernels and the routed calls against their
                plain versions, with CUDA events, the device-to-device copy
                rate, the library yardsticks where one PyTorch call computes
-               the same function, and a torch.profiler breakdown of each
-               routed call.
+               the same function (a call that computes another, such as a
+               yes/no for a position, is logged as a note), the device rows
+               of #24, #26, their flag fill and their casts, widen32's
+               launch plan, and a torch.profiler breakdown of each routed
+               call.
 
 Before the last line it prints one JSON object with every kernel (launches
-on its path, largest error against its plain version, ms, plain ms,
+on its path, largest error against its plain version, ms, ``device_us``
+where a phase read its device row, plain ms,
 ``library_ms`` or null, and ``bound_ms``: the bytes it must move over the
 card's published 3.35 TB/s; ``copy_bound_ms`` the same bytes at the
 measured copy rate) and the card's
@@ -276,6 +285,9 @@ KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
 #: HBM rate of one H100 SXM (NVIDIA's data sheet, at the 700 W limit): the
 #: bound of these kernels, which all stream their bytes
 PEAK_BYTES_PER_S = 3.35e12
+#: device µs per call of a kernel's own row (torch.profiler), where a phase
+#: measured it; the kernels' JSON line carries it beside the event ms
+DEVICE_US: dict = {}
 MODES64 = ((False, False), (True, False), (False, True))  # (url, both)
 
 
@@ -2120,6 +2132,13 @@ def cuda_ms(fn, iters: int = 10, trials: int = 7) -> float:
     return statistics.median(times)
 
 
+def note_call(call, what: str, card: str) -> None:
+    """Log the ms by events of a PyTorch call that computes a different
+    function from the kernel beside it: a note, never a library yardstick."""
+    log(f"time note {what}: {cuda_ms(call):.4f} ms (a different function: no yardstick) "
+        f"[{card}]")
+
+
 def _time_pairs(pairs: dict, nbytes: int, card: str) -> dict:
     """{name: (kernel ms, plain ms)} of each (kernel, plain) pair, timed in
     turns; ``nbytes`` is the input size for the GB/s figures."""
@@ -2395,8 +2414,8 @@ def timesx_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict]:
 def timesu_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dict]:
     """ms of each utilities kernel and of its plain version at its path's
     shapes: ascii_first_bad on a 64 MiB ASCII buffer (every byte read),
-    with ``torch.amax`` over the same bytes as the library yardstick (it
-    gives only the yes/no half); utf16_to_well_formed on the corpus's
+    with ``torch.amax`` over the same bytes as a note (a yes/no, not the
+    position: no yardstick); utf16_to_well_formed on the corpus's
     UTF-16LE units in their 64 Mi-unit bucket; detect_encodings on the
     64 MiB corpus and on its UTF-32LE bytes; a torch.profiler breakdown of
     each, for the device time under the wrappers' host pace."""
@@ -2419,9 +2438,9 @@ def timesu_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dict]:
     ms = _time_pairs({
         "ascii_first_bad": (lambda: kv.ascii_first_bad(a, A), lambda: kv.ascii_first_bad_ref(a, A)),
     }, A, card)
-    library = {"ascii_first_bad": cuda_ms(lambda: torch.amax(a[:A]))}
-    log(f"time library torch.amax over the {A} B ASCII buffer: "
-        f"{library['ascii_first_bad']:.4f} ms [{card}]")
+    note_call(lambda: torch.amax(a[:A]), f"torch.amax over the {A} B ASCII buffer (a yes/no, "
+              f"not ascii_first_bad's position)", card)
+    library = {}
     ms.update(_time_pairs({
         "utf16_to_well_formed": (lambda: k16.utf16_to_well_formed(w, U, False),
                                  lambda: k16.utf16_to_well_formed_ref(w, U, False)),
@@ -2451,10 +2470,11 @@ def timestr_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dict]
     and 🙂 corpora in their 64 MiB bucket, the UTF-16 -> UTF-8 kernels on
     ``big`` units of each class in a 64 Mi-unit bucket, device-resident;
     the routed class calls against the census's and the branch's plain
-    versions; the library yardsticks ``x.to(torch.int16)`` (the LE widen of
-    ASCII bytes) and ``w.view(torch.int16).to(torch.uint8)`` (the narrow of
-    ASCII units; no PyTorch call computes the uniform classes); a
-    torch.profiler breakdown of each routed class call."""
+    versions; the library yardstick ``x.to(torch.int16)`` (the LE widen of
+    ASCII bytes; no PyTorch call computes the uniform classes) and, as a
+    note, ``w.view(torch.int16).to(torch.uint8)`` (uint8[n] where the ASCII
+    narrow writes uint8[3n]); a torch.profiler breakdown of each routed
+    class call."""
     import numpy as np
     import torch
 
@@ -2505,9 +2525,9 @@ def timestr_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dict]
                   f"to_utf8 ({ch!r} class, {U} units in a {w.numel()}-unit bucket)", card)
         moved[k] = 2 * U + 3 * w.numel()
         if k == "ascii_narrow_utf8":
-            library[k] = cuda_ms(lambda w=w: w.view(torch.int16).to(torch.uint8))
-            log(f"time library w.view(torch.int16).to(torch.uint8) over the {w.numel()}-unit "
-                f"bucket: {library[k]:.4f} ms [{card}]")
+            note_call(lambda w=w: w.view(torch.int16).to(torch.uint8),
+                      f"w.view(torch.int16).to(torch.uint8) over the {w.numel()}-unit bucket "
+                      f"(uint8[n], not the kernel's uint8[3n])", card)
         del w
     log(f"bytes: {moved}")
     return ms, moved, library
@@ -2520,11 +2540,13 @@ def timestr32_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dic
     (-> UTF-8, -> UTF-16LE) and UTF-16LE units (-> UTF-32) in their
     buckets; the routed class calls against the census's and the branch's
     plain versions, and Latin-1 -> UTF-32 of the 64 MiB Latin-1 buffer;
-    the library yardsticks ``x.to(torch.int32)`` (#24, the ASCII bytes),
+    the library yardsticks ``x.to(torch.int32)`` (#24, the ASCII bytes) and
     ``u.to(torch.int32)`` (#26, LE BMP units; none where the cast has no
-    CUDA kernel for uint16) and ``w.to(torch.int16)`` (#28, BMP words; no
-    PyTorch call computes the other classes); a torch.profiler breakdown
-    of each routed call."""
+    CUDA kernel for uint16), each with its device row from torch.profiler
+    beside #24's and #26's own and their flag fill's, and widen32's launch
+    plan; ``w.to(torch.int16)`` (#28: int16[n] where the kernel writes
+    uint16[2n]) as a note; no PyTorch call computes the other classes; a
+    torch.profiler breakdown of each routed call."""
     import numpy as np
     import torch
 
@@ -2556,6 +2578,25 @@ def timestr32_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dic
         ms.update(_time_pairs({k: (kern, plain), what: (route, plain_route)}, nbytes, card))
         breakdown(route, what, card)
 
+    def rows_of(call, what):
+        _, rows = device_rows(call)
+        check(bool(rows), f"torch.profiler saw no device row of {what}")
+        return rows
+
+    def widen_rows(k, kern, cast, what):
+        """#24's or #26's own device row and its flag fill's beside its
+        event ms, then its cast's, timed as the library yardstick."""
+        rows = rows_of(kern, k)
+        DEVICE_US[k] = rows[0][0]
+        others = ", ".join(f"{'flag fill' if 'Fill' in key or 'emset' in key else 'other'} "
+                           f"{us:.2f} us ({key[:70]})" for us, _, key in rows[1:])
+        log(f"device {k}: {rows[0][0]:.2f} us/call of its own row, {ms[k][0]:.4f} ms by "
+            f"events; {others or 'no other row'} [{card}]")
+        yardstick(k, cast, what)
+        if k in library:
+            log(f"device {what}: {rows_of(cast, what)[0][0]:.2f} us/call, "
+                f"{library[k]:.4f} ms by events [{card}]")
+
     for k, ch in FIXED8TO32:
         x, L = staged(np.frombuffer(class_corpus(ch, big), np.uint8))
         fn, ref = getattr(k32, k), getattr(k32, k + "_ref")
@@ -2569,8 +2610,8 @@ def timestr32_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dic
               f"to_utf32 (ops.utf8, routed, {ch!r} class, {L} B in a {x.numel()} B bucket)")
         moved[k] = L + 4 * x.numel()
         if k == "latin1_widen_utf32":
-            yardstick(k, lambda x=x: x.to(torch.int32),
-                      f"x.to(torch.int32) over the {x.numel()} B bucket")
+            widen_rows(k, lambda x=x, L=L, fn=fn: fn(x, L), lambda x=x: x.to(torch.int32),
+                       f"x.to(torch.int32) over the {x.numel()} B bucket")
         del x
     lat, B = staged(np.frombuffer(latin1_corpus(big), np.uint8))
     ms.update(_time_pairs({"to_utf32 (ops.latin1, routed)": (
@@ -2599,8 +2640,9 @@ def timestr32_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dic
               f"in a {w.numel()}-word bucket)")
         moved[k] = 4 * W + 4 * w.numel()  # 4n bytes out: UTF-8 or 2n units
         if k == "bmp_narrow_utf16":
-            yardstick(k, lambda w=w: w.to(torch.int16),
-                      f"w.to(torch.int16) over the {w.numel()}-word bucket")
+            note_call(lambda w=w: w.to(torch.int16),
+                      f"w.to(torch.int16) over the {w.numel()}-word bucket (int16[n], not the "
+                      f"kernel's uint16[2n])", card)
         del w
     for k, ch in FIXED16TO32:
         u, U = staged(_u16(class_corpus(ch, big).decode()))
@@ -2617,11 +2659,120 @@ def timestr32_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dic
               f"to_utf32 (ops.utf16, routed, {ch!r} class, {U} units in a {u.numel()}-unit bucket)")
         moved[k] = 2 * U + 4 * u.numel()
         if k == "bmp_widen_utf32":
-            yardstick(k, lambda u=u: u.to(torch.int32),
-                      f"u.to(torch.int32) over the {u.numel()}-unit uint16 bucket")
+            widen_rows(k, lambda u=u, U=U, fn=fn: fn(u, U, False), lambda u=u: u.to(torch.int32),
+                       f"u.to(torch.int32) over the {u.numel()}-unit uint16 bucket")
         del u
+    log(f"plan: {widen32_plan_text()} [{card}]")
     log(f"bytes: {moved}")
     return ms, moved, library
+
+
+def fixed_rate_inputs(big: int = CORPUS_BYTES):
+    """({kernel: (call, bytes it must move)} of the 18 fixed-rate class
+    kernels at their class calls' shapes, device-resident as timestr_phase
+    and timestr32_phase stage them; {what: call} of the PyTorch casts
+    timed beside them (#18, #24 and #26 compute their kernel's function;
+    #19's and #28's write a different buffer and are kept as notes))."""
+    import numpy as np
+    import torch
+
+    from simdutf_tpu_torch import impl
+    from simdutf_tpu_torch.kernels import transcode as ktr
+    from simdutf_tpu_torch.kernels import transcode32 as k32
+
+    def staged(arr):
+        return impl.to_device(*impl._pad(arr), "cuda")
+
+    calls, casts = {}, {}
+    for k, ch in FIXED8:
+        x, L = staged(np.frombuffer(class_corpus(ch, big), np.uint8))
+        calls[k] = (lambda x=x, L=L, fn=getattr(ktr, k): fn(x, L, False), L + 2 * x.numel())
+        if k == "ascii_widen_utf16":
+            casts["x.to(torch.int16) (#18)"] = lambda x=x: x.to(torch.int16)
+    for k, ch in FIXED16:
+        w, U = staged(_u16(ch * big))
+        calls[k] = (lambda w=w, U=U, fn=getattr(ktr, k): fn(w, U, False), 2 * U + 3 * w.numel())
+        if k == "ascii_narrow_utf8":
+            casts["w.view(torch.int16).to(torch.uint8) (#19, uint8[n] of uint8[3n])"] = (
+                lambda w=w: w.view(torch.int16).to(torch.uint8))
+    for k, ch in FIXED8TO32:
+        x, L = staged(np.frombuffer(class_corpus(ch, big), np.uint8))
+        calls[k] = (lambda x=x, L=L, fn=getattr(k32, k): fn(x, L), L + 4 * x.numel())
+        if k == "latin1_widen_utf32":
+            casts["x.to(torch.int32) (#24)"] = lambda x=x: x.to(torch.int32)
+    for k, ch in FIXED32TO8 + FIXED32TO16:
+        w, W = staged(_u32(class_corpus(ch, big).decode()))
+        args = (w, W) if k in dict(FIXED32TO8) else (w, W, False)
+        calls[k] = (lambda args=args, fn=getattr(k32, k): fn(*args), 4 * W + 4 * w.numel())
+        if k == "bmp_narrow_utf16":
+            casts["w.to(torch.int16) (#28, int16[n] of uint16[2n])"] = lambda w=w: w.to(torch.int16)
+    for k, ch in FIXED16TO32:
+        u, U = staged(_u16(class_corpus(ch, big).decode()))
+        calls[k] = (lambda u=u, U=U, fn=getattr(k32, k): fn(u, U, False), 2 * U + 4 * u.numel())
+        if k == "bmp_widen_utf32":
+            casts["u.to(torch.int32) (#26)"] = lambda u=u: u.to(torch.int32)
+    torch.cuda.synchronize()
+    return calls, casts
+
+
+def widen32_plan_text() -> str:
+    """The launch plan of the widening kernel behind #24 and #26: grid,
+    tile and stages for each element size."""
+    from simdutf_tpu_torch.kernels import transcode32 as k32
+
+    plan = getattr(k32, "widen32_plan", None)
+    if plan is None:
+        return "no widen32 plan (a grid-stride kernel)"
+    return "; ".join(
+        f"{src}-byte elements: grid {p['grid']} x {p['threads']} threads "
+        f"({p['blocks_per_sm']} a SM), tile {p['tile_words']} words, "
+        f"{p['stages']} stages, {p['smem_bytes']} B of shared memory a block"
+        for src, p in ((s, plan(s)) for s in (1, 2)))
+
+
+def host_us(fn, iters: int = 20) -> float:
+    """Host-clock µs per call of ``fn`` while its launches queue up: the
+    host's cost of a call, where the device takes longer."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / iters
+    torch.cuda.synchronize()
+    return us
+
+
+def fixed_rate_times_phase(card: str, big: int = CORPUS_BYTES) -> dict:
+    """Each fixed-rate kernel's and cast's ms per call by CUDA events (the
+    median of two ``cuda_ms`` runs), the device µs of its own row, with
+    every device row of one call (a wrapper's flag fill among them), from
+    torch.profiler, and the host's µs a call. Run once per tree, in one
+    process each, the trees in turns: the A/B of a change to these
+    kernels."""
+    calls, casts = fixed_rate_inputs(big)
+    out = {}
+    for name, (call, nbytes) in {**calls, **{k: (c, 0) for k, c in casts.items()}}.items():
+        ms = statistics.median([cuda_ms(call), cuda_ms(call)])
+        _, rows = device_rows(call)
+        check(bool(rows), f"torch.profiler saw no device row of {name}")
+        host = host_us(call)
+        out[name] = {"ms": ms, "device_us": rows[0][0], "host_us": host,
+                     "rows": [[round(us, 3), count, key[:100]] for us, count, key in rows]}
+        text = (f"time {name}: {ms:.4f} ms by events, {rows[0][0]:.2f} us device, "
+                f"{host:.1f} us host")
+        if nbytes:
+            bound = nbytes / PEAK_BYTES_PER_S * 1e3
+            out[name]["bound_ms"] = bound
+            text += (f", bound {bound:.4f} ms ({100 * bound / ms:.1f}% by events, "
+                     f"{100 * bound / (rows[0][0] / 1e3):.1f}% by the device row)")
+        log(f"{text} [{card}]")
+        for us, count, key in rows:
+            log(f"  {us:9.2f} us/call  x{count:g}  {key[:90]}")
+    log(f"plan: {widen32_plan_text()}")
+    return out
 
 
 def timesp_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dict]:
@@ -2673,9 +2824,9 @@ def timesp_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dict]:
         "ascii_swar_first_bad_word": (lambda: ksw.ascii_swar_first_bad_word(a, A),
                                       lambda: ksw.ascii_swar_first_bad_word_ref(a, A)),
     }, A, card))
-    library = {"ascii_swar_first_bad_word": cuda_ms(lambda: torch.amax(a[:A]))}
-    log(f"time library torch.amax over the {A} B ASCII buffer: "
-        f"{library['ascii_swar_first_bad_word']:.4f} ms [{card}]")
+    note_call(lambda: torch.amax(a[:A]), f"torch.amax over the {A} B ASCII buffer (a yes/no, "
+              f"not ascii_swar_first_bad_word's word)", card)
+    library = {}
     ms.update(_time_pairs({
         "utf16_swar_first_bad_word": (lambda: ksw.utf16_swar_first_bad_word(w, U, False),
                                       lambda: ksw.utf16_swar_first_bad_word_ref(w, U, False)),
@@ -2752,26 +2903,37 @@ def timesp_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dict]:
     return ms, moved, library
 
 
-def breakdown(fn, what: str, card: str, iters: int = 20) -> None:
-    """Device time per call of each kernel ``fn`` runs, and the device's
-    busy share of the window, from torch.profiler."""
+def device_rows(fn, iters: int = 20):
+    """(host-clock µs per call, [(device µs per call, launches per call,
+    name), ...] largest first) of the device-side work ``fn`` starts, from
+    torch.profiler over ``iters`` calls after one warm-up call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6 / iters
-    # device-side events only (kernels, copies): an aten op's row repeats
-    # the time of the kernels it launched
-    rows = sorted(((e.self_device_time_total / iters, e.count / iters, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+    for _ in range(3):  # the profiler now and then returns no device rows
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6 / iters
+        # device-side events only (kernels, copies, memsets): an aten op's
+        # row repeats the time of the kernels it launched
+        rows = sorted(((e.self_device_time_total / iters, e.count / iters, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.self_device_time_total > 0), reverse=True)
+        if rows:
+            break
+    return wall_us, rows
+
+
+def breakdown(fn, what: str, card: str, iters: int = 20) -> None:
+    """Device time per call of each kernel ``fn`` runs, and the device's
+    busy share of the window, from torch.profiler."""
+    wall_us, rows = device_rows(fn, iters)
     busy = sum(r[0] for r in rows)
     log(f"breakdown {what}: {wall_us:.1f} us/call on the host clock, device "
         f"busy {busy:.1f} us/call ({100 * busy / wall_us:.1f}%) [{card}]")
@@ -2780,6 +2942,16 @@ def breakdown(fn, what: str, card: str, iters: int = 20) -> None:
 
 
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--fixed-rate-times", action="store_true",
+                        help="only build and time the fixed-rate kernels and their casts "
+                             "(fixed_rate_times_phase); print one JSON line")
+    parser.add_argument("--root", default=None,
+                        help="import simdutf_tpu_torch from this checkout (with "
+                             "--fixed-rate-times: a parent tree unpacked beside this one)")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -2787,6 +2959,8 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
     try:
         import bench  # noqa: F401
         import simdutf_tpu_torch  # noqa: F401
@@ -2794,6 +2968,18 @@ def main() -> int:
         print(f"chip_smoke: run from a checkout of the repo ({exc})",
               file=sys.stderr)
         return 2
+    if args.fixed_rate_times:
+        try:
+            name, card = device_phase()
+            log(f"package: {os.path.dirname(simdutf_tpu_torch.__file__)}")
+            build_phase()
+            times = fixed_rate_times_phase(card)
+        except SmokeFailure as exc:
+            print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+            return 1
+        print(json.dumps({"fixed_rate_times": times, "root": args.root or ".",
+                          "card": card}))
+        return 0
     try:
         name, card = device_phase()
         build_phase()
@@ -2845,7 +3031,7 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "also_replaces": KERNELS[k][2],
          "launches": launches[k], "max_abs_err": errs[k],
-         "ms": ms[k][0], "plain_ms": ms[k][1],
+         "ms": ms[k][0], "device_us": DEVICE_US.get(k), "plain_ms": ms[k][1],
          "bytes": moved[k], "bound_ms": moved[k] / PEAK_BYTES_PER_S * 1e3,
          "bound_by": "bytes", "copy_bound_ms": moved[k] / rate * 1e3,
          "library_ms": library.get(k)}

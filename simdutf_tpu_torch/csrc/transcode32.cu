@@ -2,18 +2,19 @@
 // the Pallas kernels' class flag ("some in-range element lies outside the
 // class"). Every function of simdutf_tpu/kernels/transcode.py named below
 // is the file's; the line is its pallas_call.
-//   utf8_to_utf32_fixed<ASCII | U2 | U3 | U4> replaces _l1_32_kernel
-//     (_l1_32_pallas, :527; the Latin-1 widen, which also serves the ASCII
-//     UTF-8 class), _u2_32_kernel (_u2_32_pallas, :815), _u3_32_kernel
-//     (_u3_32_pallas, :937) and _wordmap_kernel's "u8_to_u32" variant
-//     (astral_wordmap, :1127);
+//   widen32<1> replaces _l1_32_kernel (_l1_32_pallas, :527; the Latin-1
+//     widen, which also serves the ASCII UTF-8 class);
+//   widen32<2, BE> replaces bmp_widen_utf32 in both its forms,
+//     _bmp_widen_kernel (_bmp_widen_pallas, :632) and the butterfly
+//     _bmp_widen_bf_kernel (_bmp_widen_bf, :612);
+//   utf8_to_utf32_fixed<U2 | U3 | U4> replaces _u2_32_kernel (_u2_32_pallas,
+//     :815), _u3_32_kernel (_u3_32_pallas, :937) and _wordmap_kernel's
+//     "u8_to_u32" variant (astral_wordmap, :1127);
 //   utf32_to_utf8_fixed<U2 | U3 | U4> replaces _rev2_32_kernel
 //     (_rev2_32_pallas, :883), _rev3_32_kernel (_rev3_32_pallas, :1005) and
 //     _wordmap_kernel's "u32_to_u8" variant;
-//   utf16_to_utf32_fixed<BMP | ASTRAL, BE> replaces bmp_widen_utf32 in both
-//     its forms, _bmp_widen_kernel (_bmp_widen_pallas, :632) and the
-//     butterfly _bmp_widen_bf_kernel (_bmp_widen_bf, :612), and
-//     _wordmap_kernel's "u16pair_to_u32" variant;
+//   utf16_to_utf32_fixed<BE> (the astral class) replaces _wordmap_kernel's
+//     "u16pair_to_u32" variant;
 //   utf32_to_utf16_fixed<BMP | ASTRAL, BE> replaces bmp_narrow_utf16 in both
 //     its forms, _bmp_narrow_kernel (_bmp_narrow_pallas, :746) and
 //     _bmp_narrow_bf_kernel (_bmp_narrow_bf, :726), and _wordmap_kernel's
@@ -21,25 +22,26 @@
 //
 // Floor: HBM bytes, one read of the in-range input and one write of the
 // whole output buffer (4 bytes a word; 4n bytes of UTF-8 or UTF-16 from n
-// words). A thread step is four code points, so each side of a step is
-// one contiguous access across the warp: 4/8/12/16 bytes of UTF-8 or 8/16
-// bytes of UTF-16 against 16 bytes of words. Every access but the 12-byte
-// one (three 4-byte accesses) is a single vector access at a multiple of
-// its own size; a ragged last step, or a buffer not so aligned, takes
-// byte accesses.
+// words). In the grid-stride kernels a thread step is four code points, so
+// each side of a step is one contiguous access across the warp: 8/12/16
+// bytes of UTF-8 or 16 bytes of UTF-16 against 16 bytes of words. Every
+// access but the 12-byte one (three 4-byte accesses) is a single vector
+// access at a multiple of its own size; a ragged last step, or a buffer not
+// so aligned, takes byte accesses. widen32 moves whole tiles with the copy
+// engine instead (see there).
 //
 // As in transcode.cu, where the TPU kernels lean on zero padding and a
 // host trim these take the length: elements at/after it read as zero and
 // never flag (a character whose first element is in range is checked with
 // them), and the kernels write the whole output buffer, the class's output
-// then zeros, in the same pass. Every block ORs its threads' flags with
-// __syncthreads_or and makes one atomicOr. Offsets are 64-bit: 4n bytes
-// pass 2^31 once n passes 2^29 words.
+// then zeros, in the same pass. Every block ORs its threads' flags and makes
+// at most one atomicOr. Offsets are 64-bit: 4n bytes pass 2^31 once n
+// passes 2^29 words.
 #include "utf16.cuh"
 
 namespace {
 
-constexpr int ASCII = 1, U2 = 2, U3 = 3, U4 = 4;  // UTF-8 bytes a code point
+constexpr int U2 = 2, U3 = 3, U4 = 4;  // UTF-8 bytes a code point
 constexpr int BMP = 1, ASTRAL = 2;                // UTF-16 units a code point
 
 // alignment of a K-word access at a multiple of 4K bytes
@@ -132,10 +134,7 @@ __global__ void __launch_bounds__(256)
         const int c0 = byte_at(x, CLS * j);
         int cp;
         bool ok;
-        if constexpr (CLS == ASCII) {  // Latin-1 bytes widen all the same
-          cp = c0;
-          ok = c0 < 0x80;
-        } else if constexpr (CLS == U2) {  // _u2_32_core
+        if constexpr (CLS == U2) {  // _u2_32_core
           const int c1 = byte_at(x, 2 * j + 1);
           cp = ((c0 & 0x1F) << 6) | (c1 & 0x3F);
           ok = (c0 & 0xE0) == 0xC0 && c0 >= 0xC2 && su::is_cont(c1);
@@ -217,42 +216,32 @@ __global__ void __launch_bounds__(256)
   flag_block(bad, flag);
 }
 
-// out: n words; words [0, length / UPC) decoded, the rest zero. A step
-// reads 8 (BMP) or 16 (ASTRAL) bytes of units and writes 16.
-template <int UPC, bool BE>
+// out: n words; words [0, length / 2) decoded from unit pairs, the rest
+// zero. A step reads 16 bytes of units and writes 16.
+template <bool BE>
 __global__ void __launch_bounds__(256)
     utf16_to_utf32_fixed(const uint8_t* __restrict__ w, long long n,
                          long long length, uint8_t* __restrict__ out,
                          int* __restrict__ flag) {
-  constexpr int KIN = 2 * UPC;  // input words a step
-  const bool vin = aligned_for<KIN>(w), vout = aligned_for<4>(out);
-  const long long cnt = length / UPC, steps = (n + 3) / 4;
+  const bool vin = aligned_for<4>(w), vout = aligned_for<4>(out);
+  const long long cnt = length / 2, steps = (n + 3) / 4;
   bool bad = false;
   for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        k < steps; k += (long long)gridDim.x * blockDim.x) {
-    const long long u0 = 4 * UPC * k, q0 = 4 * k;
+    const long long u0 = 8 * k, q0 = 4 * k;
     uint32_t o[4] = {};
     if (u0 < length) {
-      uint32_t x[KIN];
-      load_words<KIN>(w, 2 * u0, 2 * length, vin, x);
+      uint32_t x[4];
+      load_words<4>(w, 2 * u0, 2 * length, vin, x);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        int cp;
-        bool ok;
-        if constexpr (UPC == BMP) {  // _bmp_widen_planes
-          int u = (x[j >> 1] >> (16 * (j & 1))) & 0xFFFF;
-          if (BE) u = su::bswap16(u);
-          cp = u;
-          ok = !su::is_sur(u);
-        } else {  // _wordmap_kernel, "u16pair_to_u32"
-          int h = x[j] & 0xFFFF, l = x[j] >> 16;
-          if (BE) h = su::bswap16(h), l = su::bswap16(l);
-          ok = su::is_hi(h) && su::is_lo(l);
-          // the plain branch's ((h - 0xD7C0) << 10) | (l & 0x3FF), which is
-          // 0x10000 + ((h & 0x3FF) << 10) + (l & 0x3FF) on a valid pair
-          cp = (int)(((uint32_t)(h - 0xD7C0) << 10) | (uint32_t)(l & 0x3FF));
-        }
-        bad |= !ok && u0 + UPC * j < length;
+      for (int j = 0; j < 4; ++j) {  // _wordmap_kernel, "u16pair_to_u32"
+        int h = x[j] & 0xFFFF, l = x[j] >> 16;
+        if (BE) h = su::bswap16(h), l = su::bswap16(l);
+        const bool ok = su::is_hi(h) && su::is_lo(l);
+        // the plain branch's ((h - 0xD7C0) << 10) | (l & 0x3FF), which is
+        // 0x10000 + ((h & 0x3FF) << 10) + (l & 0x3FF) on a valid pair
+        const int cp = (int)(((uint32_t)(h - 0xD7C0) << 10) | (uint32_t)(l & 0x3FF));
+        bad |= !ok && u0 + 2 * j < length;
         o[j] = q0 + j < cnt ? (uint32_t)cp : 0u;
       }
     }
@@ -306,6 +295,295 @@ __global__ void __launch_bounds__(256)
   flag_block(bad, flag);
 }
 
+// --- widen32: one element to one word, through the copy engine -----------
+//
+// widen32<1> widens Latin-1 bytes (the class flag: a byte >= 0x80, the
+// ASCII check) and widen32<2, BE> UTF-16 units, byte-swapped when BE (the
+// flag: a surrogate). Each moves 5 (bytes) or 6 (units) bytes a word and
+// does one compare, so HBM sets its pace, and 80% (75%) of the bytes are
+// output written once and never read back.
+//
+// The design keeps the loads and the stores in flight with no registers
+// spent on them. A persistent grid of one wave (the SMs times the blocks
+// resident on each) walks whole tiles of WIDEN_TILE words, tile
+// blockIdx.x + k * gridDim.x. Each block keeps a ring of WIDEN_STAGES
+// stages in shared memory, each an input tile and an output tile. Thread 0
+// keeps the next stages' input in flight with 1-D bulk copies
+// (cp.async.bulk, completing on the stage's mbarrier); the threads widen
+// from the input tile into the output tile (16-byte shared stores); thread
+// 0 writes the output tile out with one bulk copy from shared memory, with
+// the L2 evict-first hint, and waits for a stage's copy to have read its
+// tile before the stage is written again. A tile wholly at or past the
+// length loads nothing and writes zeros.
+//
+// The edges take the element path of the grid-stride kernels above, steps
+// of four words in the same kernel: the head up to the first element whose
+// input and output both lie on the 16-byte grid, the elements after the
+// last whole tile, and the whole buffer when no such element exists (an
+// input view off the grid by other than a multiple of four elements'
+// bytes). The host computes the split from the two addresses.
+constexpr int WIDEN_THREADS = 256;
+constexpr int WIDEN_TILE = 4096;  // words a tile: 16 KB out
+constexpr int WIDEN_STAGES = 3;
+// cp.async.bulk's L2 cache-policy operand for "evict first" (CUTLASS's
+// CacheHintSm90::EVICT_FIRST)
+constexpr unsigned long long EVICT_FIRST = 0x12F0000000000000ull;
+
+template <int SRC>
+constexpr int widen_smem() {  // dynamic shared memory a block
+  return WIDEN_STAGES * (SRC + 4) * WIDEN_TILE;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(const uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ``bytes`` (a multiple of 16; both addresses 16-byte aligned) from global
+// to shared memory, counted on ``bar``, which expects them
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ``bytes`` from shared to global memory as one bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint "
+      "[%0], [%1], %2, %3;\n" ::"l"(reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_u32(src)), "r"(bytes), "l"(EVICT_FIRST)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// four elements from the 4 * SRC bytes w to words, native byte order
+template <int SRC, bool BE>
+__device__ __forceinline__ void widen4(const uint32_t (&w)[SRC],
+                                       uint32_t (&v)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (SRC == 1) {
+      v[j] = (w[0] >> (8 * j)) & 0xFF;
+    } else {
+      const int u = (w[j >> 1] >> (16 * (j & 1))) & 0xFFFF;
+      v[j] = (uint32_t)(BE ? su::bswap16(u) : u);
+    }
+  }
+}
+
+template <int SRC>
+__device__ __forceinline__ bool widen_bad(uint32_t v) {
+  return SRC == 1 ? v >= 0x80 : su::is_sur((int)v);
+}
+
+// the element path: step k, words [4k, 4k + 4), as the grid-stride
+// kernels take it; returns the step's flag
+template <int SRC, bool BE>
+__device__ __forceinline__ bool widen_step(const uint8_t* __restrict__ x,
+                                           long long k, long long n,
+                                           long long length, bool vin,
+                                           bool vout,
+                                           uint8_t* __restrict__ out) {
+  const long long q0 = 4 * k;
+  uint32_t v[4] = {};
+  bool bad = false;
+  if (q0 < length) {
+    uint32_t w[SRC];
+    load_words<SRC>(x, SRC * q0, SRC * length, vin, w);
+    widen4<SRC, BE>(w, v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (q0 + j >= length) v[j] = 0;  // read as zero already; never flags
+      bad |= widen_bad<SRC>(v[j]);
+    }
+  }
+  store_words<4>(out, 4 * q0, 4 * n, vout, v);
+  return bad;
+}
+
+// one tile from shared ``in`` to shared ``ot``; ``live`` words of it lie
+// before the length
+template <int SRC, bool BE>
+__device__ __forceinline__ bool widen_tile(const uint8_t* in, uint8_t* ot,
+                                           long long live) {
+  bool bad = false;
+#pragma unroll
+  for (int r = 0; r < WIDEN_TILE / (4 * WIDEN_THREADS); ++r) {
+    const int c = r * WIDEN_THREADS + threadIdx.x;  // words [4c, 4c + 4)
+    uint32_t w[SRC], v[4];
+    if constexpr (SRC == 1) {
+      w[0] = reinterpret_cast<const uint32_t*>(in)[c];
+    } else {
+      const uint2 m = reinterpret_cast<const uint2*>(in)[c];
+      w[0] = m.x, w[1] = m.y;
+    }
+    widen4<SRC, BE>(w, v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (4 * c + j >= live) v[j] = 0;
+      bad |= widen_bad<SRC>(v[j]);
+    }
+    reinterpret_cast<uint4*>(ot)[c] = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+  return bad;
+}
+
+// out: n words, words [0, length) widened, the rest zero. Words [head,
+// head + ntiles * WIDEN_TILE) go by tiles (head % 4 == 0, and x + SRC *
+// head and out + 4 * head are 16-byte aligned), the rest by steps.
+template <int SRC, bool BE>
+__global__ void __launch_bounds__(WIDEN_THREADS)
+    widen32(const uint8_t* __restrict__ x, long long n, long long length,
+            uint8_t* __restrict__ out, int* __restrict__ flag,
+            long long head, long long ntiles) {
+  constexpr int IN = SRC * WIDEN_TILE, OUT = 4 * WIDEN_TILE, S = WIDEN_STAGES;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ uint64_t full[S];
+  __shared__ int any_bad;
+  const int tid = threadIdx.x;
+  bool bad = false;
+
+  // the edges, by steps: [0, head / 4) and [tail, steps)
+  const long long steps = (n + 3) / 4, h4 = head / 4,
+                  tail = (head + ntiles * WIDEN_TILE) / 4;
+  const bool vin = aligned_for<SRC>(x), vout = aligned_for<4>(out);
+  for (long long e = blockIdx.x * (long long)WIDEN_THREADS + tid;
+       e < h4 + steps - tail; e += (long long)gridDim.x * WIDEN_THREADS)
+    bad |= widen_step<SRC, BE>(x, e < h4 ? e : tail + e - h4, n, length, vin,
+                               vout, out);
+
+  // the tiles
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem_u32(&full[s]))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    any_bad = 0;
+  }
+  __syncthreads();
+  uint8_t* const in_s = smem;           // S input tiles
+  uint8_t* const out_s = smem + S * IN;  // S output tiles
+  // thread 0: the input of the block's j-th tile, if it has any in range;
+  // tiles with input come first, so stage s's barrier completes once for
+  // each of its tiles j with input, in phase (j / S) & 1
+  auto fetch = [&](long long j) {
+    const long long g = blockIdx.x + j * gridDim.x, e0 = head + g * WIDEN_TILE;
+    if (g < ntiles && e0 < length) {
+      const int s = (int)(j % S);
+      bulk_load(in_s + s * IN, x + SRC * e0, IN, &full[s]);
+    }
+  };
+  if (tid == 0)
+    for (int j = 0; j < S; ++j) fetch(j);
+  for (long long j = 0;; ++j) {
+    const long long g = blockIdx.x + j * gridDim.x;
+    if (g >= ntiles) break;
+    const int s = (int)(j % S);
+    const long long e0 = head + g * WIDEN_TILE;
+    uint8_t* const ot = out_s + s * OUT;
+    if (e0 < length) {
+      mbar_wait(&full[s], (int)((j / S) & 1));
+      bad |= widen_tile<SRC, BE>(in_s + s * IN, ot, length - e0);
+    } else {
+#pragma unroll
+      for (int r = 0; r < OUT / (16 * WIDEN_THREADS); ++r)
+        reinterpret_cast<uint4*>(ot)[r * WIDEN_THREADS + tid] = make_uint4(0, 0, 0, 0);
+    }
+    // the shared stores, seen by the copy engine; the next stage's output
+    // tile read out by its last copy (groups up to j - S + 1)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (tid == 0)
+      asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(S - 2) : "memory");
+    __syncthreads();
+    if (tid == 0) {
+      bulk_store(out + 4 * e0, ot, OUT);
+      fetch(j + S);
+    }
+  }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+
+  if (__any_sync(0xFFFFFFFFu, bad) && (tid & 31) == 0) any_bad = 1;
+  __syncthreads();
+  if (tid == 0 && any_bad) atomicOr(flag, 1);
+}
+
+// blocks of widen32<SRC, BE> resident on one SM of the current device
+// (its shared memory allowed first), and that device's SMs
+template <int SRC, bool BE>
+cudaError_t widen_resident(int* per_sm, int* sms) {
+  static int cached[64];  // by device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && cached[dev]) {
+    *per_sm = cached[dev];
+    return cudaSuccess;
+  }
+  e = cudaFuncSetAttribute(widen32<SRC, BE>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           widen_smem<SRC>());
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, widen32<SRC, BE>, WIDEN_THREADS, widen_smem<SRC>());
+  if (e != cudaSuccess) return e;
+  if (*per_sm < 1) return cudaErrorInvalidConfiguration;
+  if (dev < 64) cached[dev] = *per_sm;
+  return cudaSuccess;
+}
+
+template <int SRC, bool BE>
+int widen(const void* x, long long n, long long length, void* out, int* flag,
+          void* stream) {
+  int per_sm = 0, sms = 0;
+  const cudaError_t e = widen_resident<SRC, BE>(&per_sm, &sms);
+  if (e != cudaSuccess) return (int)e;
+  // the first element with input and output on the 16-byte grid: out is
+  // (a fresh allocation), so it is a multiple of 4 elements in, which
+  // exists when x is off the grid by a multiple of 4 * SRC bytes
+  const uintptr_t a = reinterpret_cast<uintptr_t>(x) & 15;
+  long long head = (long long)((16 - a) & 15) / SRC, ntiles = 0;
+  if ((reinterpret_cast<uintptr_t>(out) & 15) == 0 && a % (4 * SRC) == 0 &&
+      n - head >= WIDEN_TILE)
+    ntiles = (n - head) / WIDEN_TILE;
+  else
+    head = 0;
+  const long long edge = head / 4 + (n + 3) / 4 - (head + ntiles * WIDEN_TILE) / 4;
+  long long grid = ntiles > (edge + WIDEN_THREADS - 1) / WIDEN_THREADS
+                       ? ntiles
+                       : (edge + WIDEN_THREADS - 1) / WIDEN_THREADS;
+  if (grid > (long long)per_sm * sms) grid = (long long)per_sm * sms;
+  if (grid < 1) grid = 1;
+  widen32<SRC, BE><<<(int)grid, WIDEN_THREADS, widen_smem<SRC>(),
+                     (cudaStream_t)stream>>>(
+      static_cast<const uint8_t*>(x), n, length, static_cast<uint8_t*>(out),
+      flag, head, ntiles);
+  return (int)cudaGetLastError();
+}
+
 template <int CLS>
 int from_utf8(const uint8_t* b, long long n, long long length, int32_t* out,
               int* flag, void* stream) {
@@ -324,17 +602,16 @@ int to_utf8(const int32_t* w, long long n, long long length, uint8_t* out,
   return (int)cudaGetLastError();
 }
 
-template <int UPC>
-int from_utf16(const uint16_t* w, long long n, long long length, int be,
-               int32_t* out, int* flag, void* stream) {
+int astral_from_utf16(const uint16_t* w, long long n, long long length, int be,
+                      int32_t* out, int* flag, void* stream) {
   const int grid = su::grid_for((n + 3) / 4);
   auto* x = reinterpret_cast<const uint8_t*>(w);
   auto* o = reinterpret_cast<uint8_t*>(out);
   if (be)
-    utf16_to_utf32_fixed<UPC, true><<<grid, 256, 0, (cudaStream_t)stream>>>(
+    utf16_to_utf32_fixed<true><<<grid, 256, 0, (cudaStream_t)stream>>>(
         x, n, length, o, flag);
   else
-    utf16_to_utf32_fixed<UPC, false><<<grid, 256, 0, (cudaStream_t)stream>>>(
+    utf16_to_utf32_fixed<false><<<grid, 256, 0, (cudaStream_t)stream>>>(
         x, n, length, o, flag);
   return (int)cudaGetLastError();
 }
@@ -362,7 +639,7 @@ int to_utf16(const int32_t* w, long long n, long long length, int be,
 extern "C" int latin1_widen_utf32(const uint8_t* b, long long n,
                                   long long length, int be, int32_t* out,
                                   int* flag, void* stream) {
-  return from_utf8<ASCII>(b, n, length, out, flag, stream);
+  return widen<1, false>(b, n, length, out, flag, stream);
 }
 
 extern "C" int uniform2_utf8_to_utf32(const uint8_t* b, long long n,
@@ -406,13 +683,14 @@ extern "C" int astral_utf32_to_utf8(const int32_t* w, long long n,
 extern "C" int bmp_widen_utf32(const uint16_t* w, long long n,
                                long long length, int be, int32_t* out,
                                int* flag, void* stream) {
-  return from_utf16<BMP>(w, n, length, be, out, flag, stream);
+  return be ? widen<2, true>(w, n, length, out, flag, stream)
+            : widen<2, false>(w, n, length, out, flag, stream);
 }
 
 extern "C" int astral_utf16_to_utf32(const uint16_t* w, long long n,
                                      long long length, int be, int32_t* out,
                                      int* flag, void* stream) {
-  return from_utf16<ASTRAL>(w, n, length, be, out, flag, stream);
+  return astral_from_utf16(w, n, length, be, out, flag, stream);
 }
 
 // w: n words, out: 2n units.
@@ -426,4 +704,22 @@ extern "C" int astral_utf32_to_utf16(const int32_t* w, long long n,
                                      long long length, int be, uint16_t* out,
                                      int* flag, void* stream) {
   return to_utf16<ASTRAL>(w, n, length, be, out, flag, stream);
+}
+
+// The launch plan of latin1_widen_utf32 (src 1) or bmp_widen_utf32 (src
+// 2) on the current device for a buffer of many tiles: plan[0..5] = grid,
+// threads a block, blocks a SM, words a tile, stages, shared memory bytes
+// a block. Returns a cudaError_t.
+extern "C" int widen32_plan(int src, int* plan) {
+  int per_sm = 0, sms = 0;
+  const cudaError_t e = src == 1 ? widen_resident<1, false>(&per_sm, &sms)
+                                 : widen_resident<2, false>(&per_sm, &sms);
+  if (e != cudaSuccess) return (int)e;
+  plan[0] = per_sm * sms;
+  plan[1] = WIDEN_THREADS;
+  plan[2] = per_sm;
+  plan[3] = WIDEN_TILE;
+  plan[4] = WIDEN_STAGES;
+  plan[5] = src == 1 ? widen_smem<1>() : widen_smem<2>();
+  return 0;
 }

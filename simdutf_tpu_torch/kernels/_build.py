@@ -85,6 +85,7 @@ SIGNATURES = {
     "astral_utf16_to_utf32": (_P, _I64, _I64, _I32, _P, _P, _P),
     "bmp_narrow_utf16": (_P, _I64, _I64, _I32, _P, _P, _P),
     "astral_utf32_to_utf16": (_P, _I64, _I64, _I32, _P, _P, _P),
+    "widen32_plan": (_I32, _P),
     "utf8_swar_first_bad_word": (_P, _I64, _P, _P),
     "ascii_swar_first_bad_word": (_P, _I64, _P, _P),
     "utf16_swar_first_bad_word": (_P, _I64, _I32, _P, _P),

@@ -28,10 +28,15 @@ UTF-16 ones take ``be``. The port's routes call these only on a class the
 census has proved and never read the flag.
 
 All eleven kernels stream their bytes (floor: HBM bytes, the in-range
-input read once and the whole output written once).
+input read once and the whole output written once). ``latin1_widen_utf32``
+and ``bmp_widen_utf32`` launch one kernel, ``widen32``, which moves whole
+tiles through shared memory with bulk copies on a persistent grid
+(:func:`widen32_plan`); the other nine are grid-stride kernels.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -169,6 +174,19 @@ def astral_utf32_to_utf16_ref(w: torch.Tensor, length: int, be: bool):
     u = torch.stack([0xD7C0 + (x >> 10), 0xDC00 + (x & 0x3FF)], 1).reshape(-1)
     bad = ((x < 0x10000) | (x > 0x10FFFF)) & _in_range(x, length)
     return _units_out(u, 2 * length, 2 * w.shape[0], be), _flag(bad)
+
+
+def widen32_plan(src: int) -> dict:
+    """The launch plan of ``widen32`` on the current CUDA device for a
+    buffer of many tiles: ``src`` 1 for :func:`latin1_widen_utf32`, 2 for
+    :func:`bmp_widen_utf32`. Keys: grid, threads, blocks_per_sm,
+    tile_words, stages, smem_bytes."""
+    plan = (ctypes.c_int * 6)()
+    rc = _build.lib().widen32_plan(int(src), plan)
+    if rc != 0:
+        raise RuntimeError(f"widen32_plan: CUDA error {rc}")
+    return dict(zip(("grid", "threads", "blocks_per_sm", "tile_words", "stages",
+                     "smem_bytes"), plan))
 
 
 def _from8(name, ref, doc):

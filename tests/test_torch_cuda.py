@@ -701,6 +701,95 @@ def test_fixed_rate32_wrappers_make_no_host_sync(cuda):
     torch.cuda.synchronize()
 
 
+# -- widen32 (#24 latin1_widen_utf32, #26 bmp_widen_utf32): tile edges ------
+
+#: widen32's entry points: (element dtype, out-of-class element, src bytes)
+_WIDEN = {"latin1_widen_utf32": (np.uint8, 0x80, 1), "bmp_widen_utf32": (np.uint16, 0xDC00, 2)}
+_WIDEN_CASES = [(name, be) for name in _WIDEN
+                for be in ((False, True) if name == "bmp_widen_utf32" else (False,))]
+
+
+def _widen_data(name: str, n: int, length: int, be: bool, seed: int) -> np.ndarray:
+    """Storage-order elements: random class elements before ``length``,
+    random garbage (out-of-class elements among it) after it."""
+    dtype = _WIDEN[name][0]
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(0, np.iinfo(dtype).max + 1, n).astype(dtype)
+    if dtype == np.uint8:
+        buf[:length] = rng.integers(0, 0x80, length)
+    else:
+        v = rng.integers(0, 0xF800, length).astype(np.uint16)
+        v[v >= 0xD800] += 0x800  # no surrogate
+        buf[:length] = v.byteswap() if be else v
+    return buf
+
+
+def _widen_put(buf: np.ndarray, pos: int, value: int, be: bool) -> None:
+    v = np.array([value], buf.dtype)
+    buf[pos] = (v.byteswap() if be and buf.dtype == np.uint16 else v)[0]
+
+
+def _widen_card(buf: np.ndarray, cuda):
+    if buf.dtype == np.uint8:
+        return torch.from_numpy(buf).to(cuda)
+    return torch.from_numpy(buf.view(np.int16)).to(cuda).view(torch.uint16)
+
+
+def _widen_call(name: str, x, length: int, be: bool, plain: bool = False):
+    fn = getattr(k32, name + "_ref" if plain else name)
+    return fn(x, length, be) if name == "bmp_widen_utf32" else fn(x, length)
+
+
+def _widen_check(name: str, x, length: int, be: bool, flag: bool) -> None:
+    got = _widen_call(name, x, length, be)
+    assert _same(got, _widen_call(name, x, length, be, plain=True))
+    assert int(got[1]) == flag
+
+
+@pytest.mark.parametrize("name,be", _WIDEN_CASES)
+@pytest.mark.parametrize("case", ["tile-1", "tile", "tile+1", "wave-1", "wave+1", "zero-tail",
+                                  "bad-first", "bad-last", "bad-past"])
+def test_widen32_tile_edges_match_plain_version(cuda, name, be, case):
+    """Lengths around one tile and around the stages x the tiles of one
+    wave (widen32_plan), a zero tail over many tiles with garbage past the
+    length, and an out-of-class element at the first and the last
+    in-range position of a tile (flags) and one past the length (does
+    not): output and flag as the plain twin's."""
+    plan = k32.widen32_plan(_WIDEN[name][2])
+    T = plan["tile_words"]
+    wave = plan["stages"] * plan["grid"] * T
+    n, length, bad = {
+        "tile-1": (T - 1, T - 1, None), "tile": (T, T, None), "tile+1": (T + 1, T + 1, None),
+        "wave-1": (wave - 1, wave - 1, None), "wave+1": (wave + 1, wave + 1, None),
+        "zero-tail": (40 * T + 5, T + 3, None),
+        "bad-first": (3 * T + 100, 2 * T + 37, T), "bad-last": (3 * T + 100, 2 * T + 37, 2 * T - 1),
+        "bad-past": (3 * T + 100, 2 * T + 37, 2 * T + 37),
+    }[case]
+    buf = _widen_data(name, n, length, be, seed=n + length)
+    if bad is not None:
+        _widen_put(buf, bad, _WIDEN[name][1], be)
+    _widen_check(name, _widen_card(buf, cuda), length, be, bad is not None and bad < length)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name,be,off", [(name, be, off) for name, be in _WIDEN_CASES
+                                         for off in ((1, 2, 4, 8) if name == "latin1_widen_utf32"
+                                                     else (1, 2, 4))])
+@pytest.mark.parametrize("bad", [False, True])
+def test_widen32_views_off_the_grid_match_plain_version(cuda, name, be, off, bad):
+    """Views that start off the 16-byte grid at every offset the dtype
+    allows: those a multiple of four elements' bytes off it take a head of
+    element steps before the tiles, the others the element path over the
+    whole buffer."""
+    n = 5 * 4096 + 7
+    buf = _widen_data(name, n, n - 3, be, seed=off)
+    if bad:
+        _widen_put(buf, off + 3 * 4096 + 1, _WIDEN[name][1], be)
+    x = _widen_card(buf, cuda)[off:]
+    _widen_check(name, x, n - 3 - off, be, bad)
+    torch.cuda.synchronize()
+
+
 # -- the pallas tier's kernels: SWAR, clean decode, row compaction, probe ---
 
 def _inputs_swar():
