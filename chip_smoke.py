@@ -7,6 +7,9 @@
                                  # times (events and device rows), of the
                                  # package in DIR: run a parent tree and
                                  # this one in turns to compare them
+    python3 chip_smoke.py --compact-times [--root DIR]
+                                 # the same for compose16, b64_compact and
+                                 # their routed calls
 
 Nine paths, each driven through the port's own api
 (``simdutf_tpu_torch.api`` on "cuda"): UTF-8 -> UTF-16LE/BE with UTF-8
@@ -282,6 +285,11 @@ KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
     "lane_shapecast_probe": ("simdutf_tpu_torch/csrc/probe.cu",
                              "simdutf_tpu/kernels/validate.py:209", []),
 }
+#: headers a kernel's source includes that hold part of its design (the
+#: single-pass look-back scan that compose16 and b64_compact share)
+HEADERS = {"utf8_to_utf16_compose": ["simdutf_tpu_torch/csrc/lookback.cuh",
+                                     "simdutf_tpu_torch/csrc/utf8.cuh"],
+           "b64_compact": ["simdutf_tpu_torch/csrc/lookback.cuh"]}
 #: HBM rate of one H100 SXM (NVIDIA's data sheet, at the 700 W limit): the
 #: bound of these kernels, which all stream their bytes
 PEAK_BYTES_PER_S = 3.35e12
@@ -387,15 +395,19 @@ def parity_cases(big: int):
     mixed = _whole(bench.mixed_corpus(300_000))
     cases.append(("mixed-300k", mixed))
     cases.append(("empty", b""))
-    # errors at compose tile edges (4096), at 0, at length-1, cut at length
-    for pos in (0, 1, 4094, 4095, 4096, 4097, 8191, 8192, 12287):
+    # errors at compose16's tile edges, at a tile's first and last three
+    # bytes, at 0, at length-1, cut at length
+    from simdutf_tpu_torch.kernels import compose16 as kc
+
+    t = kc.TILE
+    for pos in (0, 1, 2, t - 3, t - 2, t - 1, t, t + 1, t + 2, 2 * t - 1, 2 * t, 3 * t - 1):
         for bad in (b"\xff", b"\x80", b"\xed\xa0\x80", b"\xf0\x9f"):
-            d = bytearray(mixed[:20_000])
+            d = bytearray(mixed[:3 * t + 3_000])
             d[pos:pos + len(bad)] = bad
             cases.append((f"err{bad.hex()}@{pos}", bytes(d)))
     cases.append(("err@len-1", mixed[:9_999] + b"\xc3"))
     cases.append(("cut4@len", mixed[:9_000] + "🙂".encode()[:3]))
-    cases.append(("lead4@len-1", mixed[:8_191] + b"\xf0"))
+    cases.append(("lead4@len-1", mixed[:t - 1] + b"\xf0"))
     # the valid-only converters' edges: a truncated lead, 0xFF mid-buffer
     cases.append(("truncated-e6", b"\xe6"))
     cases.append(("a-ff-b", b"a\xffb"))
@@ -512,19 +524,22 @@ def mime_corpus(big: int) -> tuple[bytes, bytes]:
 def parity64_cases(mime: bytes):
     """(name, stored chars, length, buffer size, garbage past the stored
     chars) for the base64 kernel parity phase."""
+    from simdutf_tpu_torch.kernels import compact64 as kc64
+
+    t = kc64.TILE  # b64_compact's tile, in chars
     small = mime[:60_000]
+    ws = b" " * 3 * t + b"TWFu" + b"\n" * (t + 9000) + b"QUI"
     cases = [("mime-60k", small, 60_000, 60_008, False),
              ("mime-60k-garbage", small, 60_000, 61_000, True),
              ("len==N", small[:40_000], 40_000, 40_000, False),
              ("len==N-ws-last", small[:39_998] + b" Q", 40_000, 40_000, False),
-             ("ws-tiles", b" " * 3 * 4096 + b"TWFu" + b"\n" * 9000 + b"QUI",
-              21_295, 24_000, True),
+             ("ws-tiles", ws, len(ws), len(ws) + 2705, True),
              ("one", b"Q", 1, 4, False),
-             ("bad@len", small[:30_000] + b"*", 30_000, 30_004, False)]
-    for pos in (0, 1, 4095, 4096, 4097, 8191, 8192, 29_999):
-        d = bytearray(small[:30_000])
+             ("bad@len", small[:40_000] + b"*", 40_000, 40_004, False)]
+    for pos in (0, 1, 2, t - 3, t - 1, t, t + 1, t + 2, 2 * t - 1, 2 * t, 39_999):
+        d = bytearray(small[:40_000])
         d[pos] = ord("*")
-        cases.append((f"bad@{pos}", bytes(d), 30_000, 30_000 + 4 * (pos % 3),
+        cases.append((f"bad@{pos}", bytes(d), 40_000, 40_000 + 4 * (pos % 3),
                       pos % 2 == 1))
     n = -(-(len(mime) + 8) // 4) * 4
     cases.append(("mime-full", mime, len(mime), n, False))
@@ -2775,6 +2790,64 @@ def fixed_rate_times_phase(card: str, big: int = CORPUS_BYTES) -> dict:
     return out
 
 
+def compact_times_phase(card: str, big: int = CORPUS_BYTES) -> dict:
+    """compose16 (with and without its clamp) on the 64 MiB mixed corpus
+    and b64_compact (uint8 and char16) on the MIME corpus, and their routed
+    calls (``ops.utf8.to_utf16``, ``ops.base64_ops.decode_bulk_routed``):
+    ms per call by CUDA events (the median of two ``cuda_ms`` runs),
+    every device row of one call from torch.profiler (the wrapper's own
+    kernels apart from torch's), and the host's µs a call. Only names the
+    parent tree also has, so one script times both trees in turns."""
+    import numpy as np
+    import torch
+
+    import bench
+    from simdutf_tpu_torch import impl
+    from simdutf_tpu_torch.kernels import compact64 as kc64
+    from simdutf_tpu_torch.kernels import compose16 as kc
+    from simdutf_tpu_torch.ops import base64_ops as ob
+    from simdutf_tpu_torch.ops import utf8 as o8
+
+    x, L = impl.to_device(*impl._pad(np.frombuffer(bench.mixed_corpus(big), np.uint8)), "cuda")
+    _, mime = mime_corpus(big)
+    m8, M = impl.to_device(*impl._pad(np.frombuffer(mime, np.uint8)), "cuda")
+    m16 = m8.to(torch.int16).view(torch.uint16)
+    torch.cuda.synchronize()
+    calls = {
+        "compose16 (clamp)": (lambda: kc.to_utf16_compose(x, L, False), L + 2 * x.numel()),
+        "compose16 (no clamp)": (lambda: kc.to_utf16_compose(x, L, False, False),
+                                 L + 2 * x.numel()),
+        "to_utf16 (ops.utf8, routed)": (lambda: o8.to_utf16(x, L, False), 0),
+        "b64_compact (uint8)": (lambda: kc64.compact_codes(m8, M, False, False),
+                                M + m8.numel()),
+        "b64_compact (char16)": (lambda: kc64.compact_codes(m16, M, False, False),
+                                 2 * M + m16.numel()),
+        "decode_bulk_routed (uint8)": (lambda: ob.decode_bulk_routed(m8, M, False, False), 0),
+        "decode_bulk_routed (char16)": (lambda: ob.decode_bulk_routed(m16, M, False, False), 0),
+    }
+    out = {}
+    for name, (call, nbytes) in calls.items():
+        ms = statistics.median([cuda_ms(call), cuda_ms(call)])
+        _, rows = device_rows(call)
+        check(bool(rows), f"torch.profiler saw no device row of {name}")
+        busy = sum(r[0] for r in rows)
+        own = sum(us for us, _, key in rows if not key.startswith(("void at::", "Memset", "Memcpy")))
+        host = host_us(call)
+        out[name] = {"ms": ms, "device_busy_us": busy, "own_us": own, "host_us": host,
+                     "rows": [[round(us, 3), count, key[:100]] for us, count, key in rows]}
+        text = (f"time {name}: {ms:.4f} ms by events, device busy {busy:.2f} us "
+                f"(own kernels {own:.2f} us), {host:.1f} us host, {len(rows)} device rows")
+        if nbytes:
+            bound = nbytes / PEAK_BYTES_PER_S * 1e3
+            out[name]["bound_ms"] = bound
+            text += (f", bound {bound:.4f} ms ({100 * bound / ms:.1f}% by events, "
+                     f"{100 * bound / (own / 1e3):.1f}% by the own rows)")
+        log(f"{text} [{card}]")
+        for us, count, key in rows:
+            log(f"  {us:9.2f} us/call  x{count:g}  {key[:90]}")
+    return out
+
+
 def timesp_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dict]:
     """ms of each pallas-tier kernel and of its plain version at its path's
     shapes, device-resident: the UTF-8 SWAR scan on the 64 MiB corpus (the
@@ -2948,9 +3021,13 @@ def main() -> int:
     parser.add_argument("--fixed-rate-times", action="store_true",
                         help="only build and time the fixed-rate kernels and their casts "
                              "(fixed_rate_times_phase); print one JSON line")
+    parser.add_argument("--compact-times", action="store_true",
+                        help="only build and time compose16, b64_compact and their routed "
+                             "calls (compact_times_phase); print one JSON line")
     parser.add_argument("--root", default=None,
                         help="import simdutf_tpu_torch from this checkout (with "
-                             "--fixed-rate-times: a parent tree unpacked beside this one)")
+                             "--fixed-rate-times or --compact-times: a parent tree "
+                             "unpacked beside this one)")
     args = parser.parse_args()
     import torch
 
@@ -2968,17 +3045,18 @@ def main() -> int:
         print(f"chip_smoke: run from a checkout of the repo ({exc})",
               file=sys.stderr)
         return 2
-    if args.fixed_rate_times:
+    if args.fixed_rate_times or args.compact_times:
+        what, phase = (("fixed_rate_times", fixed_rate_times_phase) if args.fixed_rate_times
+                       else ("compact_times", compact_times_phase))
         try:
             name, card = device_phase()
             log(f"package: {os.path.dirname(simdutf_tpu_torch.__file__)}")
             build_phase()
-            times = fixed_rate_times_phase(card)
+            times = phase(card)
         except SmokeFailure as exc:
             print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
             return 1
-        print(json.dumps({"fixed_rate_times": times, "root": args.root or ".",
-                          "card": card}))
+        print(json.dumps({what: times, "root": args.root or ".", "card": card}))
         return 0
     try:
         name, card = device_phase()
@@ -3030,6 +3108,7 @@ def main() -> int:
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "also_replaces": KERNELS[k][2],
+         "headers": HEADERS.get(k, []),
          "launches": launches[k], "max_abs_err": errs[k],
          "ms": ms[k][0], "device_us": DEVICE_US.get(k), "plain_ms": ms[k][1],
          "bytes": moved[k], "bound_ms": moved[k] / PEAK_BYTES_PER_S * 1e3,

@@ -5,22 +5,16 @@
 //
 // b64_compact replaces the Pallas kernel _phase_b64_kernel
 // (simdutf_tpu/kernels/butterfly64.py) together with the phase C16
-// placement that composes its tiles (butterfly16._phase_c16_kernel), as two
-// launches with the torch glue of ops/common.tile_glue between them.
-// Count pass, one block per tile of 4096 chars: classify each in-range char
-// with the range compares of ops/base64_ops.classify_chars (0..63 alphabet,
-// 64 whitespace, 255 invalid; a char16 unit above 0xFF is invalid), and
-// reduce the tile's kept (alphabet) count, its least invalid position as
-// the key pos << 8 | 1, and the kept chars before that position. Emit
-// pass, one block per tile: recompute the codes, block-scan the keep
-// counts, stage the tile's codes in shared memory and write them as one
-// contiguous run at the tile's exclusive offset; the thread that holds the
-// kept char of rank nvalid & ~3 records its source index (tail_start). All
-// alphabet chars are kept, those after the first invalid one too: the
-// decoded buffer of the reference depends on them. The TPU compacts with
-// 15 roll/select butterfly rounds per tile because its scatter serialised;
-// a block scan gives each char its slot directly, and there is no
-// candidate bound, so dense whitespace needs no fallback.
+// placement that composes its tiles (butterfly16._phase_c16_kernel), as one
+// launch per char width with a decoupled look-back scan across tiles
+// (compact_kernel below, lookback.cuh): each char is read and classified
+// once (0..63 alphabet, 64 whitespace, 255 invalid; a char16 unit above
+// 0xFF is invalid), and the kernel also writes the zeros past nvalid and
+// the four scalars. All alphabet chars are kept, those after the first
+// invalid one too: the decoded buffer of the reference depends on them.
+// The TPU compacts with 15 roll/select butterfly rounds per tile because
+// its scatter serialised; a block scan gives each char its slot directly,
+// and there is no candidate bound, so dense whitespace needs no fallback.
 //
 // b64_pack replaces _pack_kernel (base64_kernel.py, pack_sextets) and
 // _pack_words_kernel (pack_words): both compute the same function on a
@@ -39,17 +33,19 @@
 // one 16-byte load into three 4-byte stores. It reads 4 and writes 3 bytes
 // a word.
 //
-// Floor: HBM bytes. Compaction reads the chars twice (count and emit pass)
-// and writes the dense codes; the pack reads them once more and writes
-// 3/4 as many bytes; encode reads n and writes 4n/3 bytes. Each char is a
-// handful of integer compares, far below the card's integer rate.
-#include "utf8.cuh"  // block reductions and scans, NO_EVENT, grid_for
+// Floor: HBM bytes. Compaction reads the chars once and writes the whole
+// code buffer once; the pack reads them once more and writes
+// 3/4 as many bytes; encode reads n and writes 4n/3 bytes. Pack and
+// encode are a handful of integer operations a char; the compaction stays
+// above its floor, held back by its look-back wait and per-char staging
+// (PERF.md).
+#include "lookback.cuh"  // the look-back scan; utf8.cuh's reductions, grid_for
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int NW = THREADS / 32;
-constexpr int PER = 16;                        // chars per thread
+constexpr int PER = 64;                        // chars per thread
 constexpr long long TILE = THREADS * PER;      // = kernels/compact64.TILE
 constexpr int SKIP = 64;                       // whitespace, or out of range
 constexpr int INVALID = 255;
@@ -75,111 +71,243 @@ __device__ __forceinline__ int classify(int c, bool url, bool both) {
   return INVALID;
 }
 
-// code[j] of the char at p0 + j, j in [0, PER): its class, or SKIP at and
-// after ``length``. p0 is a multiple of PER; whole in-range chunks of an
-// aligned buffer take 16-byte loads.
-__device__ __forceinline__ void load_codes(const uint8_t* __restrict__ c,
-                                           long long p0, long long length,
-                                           bool url, bool both, int* code) {
-  int v[PER];
-  if (p0 + PER <= length && aligned(c, 16)) {
-    const uint4 m = *reinterpret_cast<const uint4*>(c + p0);
-    const uint32_t x[4] = {m.x, m.y, m.z, m.w};
-#pragma unroll
-    for (int j = 0; j < PER; ++j) v[j] = (x[j >> 2] >> (8 * (j & 3))) & 0xFF;
+// Codes of the 16 chars at s (a multiple of 16), four to a word: the
+// table's class of each char (a char16 unit above 0xFF is INVALID), SKIP at
+// and after `length`. 16-byte loads where the chunk is in range and the
+// buffer 16-byte aligned, element loads otherwise (also for views off the
+// 16-byte grid).
+__device__ __forceinline__ void codes16(const uint8_t* __restrict__ c, long long s,
+                                        long long length, const uint8_t* table,
+                                        uint32_t* cw) {
+  uint32_t v[4];
+  if (s + 16 <= length && aligned(c, 16)) {
+    const uint4 m = *reinterpret_cast<const uint4*>(c + s);
+    v[0] = m.x;
+    v[1] = m.y;
+    v[2] = m.z;
+    v[3] = m.w;
   } else {
 #pragma unroll
-    for (int j = 0; j < PER; ++j) v[j] = p0 + j < length ? c[p0 + j] : -1;
+    for (int k = 0; k < 4; ++k) {
+      uint32_t x = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const long long p = s + 4 * k + i;
+        x |= (uint32_t)(p < length ? c[p] : ' ') << (8 * i);
+      }
+      v[k] = x;
+    }
   }
 #pragma unroll
-  for (int j = 0; j < PER; ++j) code[j] = v[j] < 0 ? SKIP : classify(v[j], url, both);
+  for (int k = 0; k < 4; ++k) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) word |= (uint32_t)table[(v[k] >> (8 * i)) & 0xFF] << (8 * i);
+    cw[k] = word;
+  }
 }
 
-__device__ __forceinline__ void load_codes(const uint16_t* __restrict__ c,
-                                           long long p0, long long length,
-                                           bool url, bool both, int* code) {
-  int v[PER];
-  if (p0 + PER <= length && aligned(c, 16)) {
+__device__ __forceinline__ void codes16(const uint16_t* __restrict__ c, long long s,
+                                        long long length, const uint8_t* table,
+                                        uint32_t* cw) {
+  uint32_t v[8];
+  if (s + 16 <= length && aligned(c, 16)) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const uint4 m = *reinterpret_cast<const uint4*>(c + p0 + 8 * h);
-      const uint32_t x[4] = {m.x, m.y, m.z, m.w};
+      const uint4 m = *reinterpret_cast<const uint4*>(c + s + 8 * h);
+      v[4 * h] = m.x;
+      v[4 * h + 1] = m.y;
+      v[4 * h + 2] = m.z;
+      v[4 * h + 3] = m.w;
+    }
+  } else {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        v[8 * h + 2 * k] = x[k] & 0xFFFF;
-        v[8 * h + 2 * k + 1] = x[k] >> 16;
+    for (int k = 0; k < 8; ++k) {
+      const long long p = s + 2 * k;
+      v[k] = (p < length ? c[p] : ' ') | (uint32_t)(p + 1 < length ? c[p + 1] : ' ') << 16;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t u = (v[(4 * k + i) >> 1] >> (16 * (i & 1))) & 0xFFFF;
+      word |= (uint32_t)(u > 0xFF ? INVALID : table[u]) << (8 * i);
+    }
+    cw[k] = word;
+  }
+}
+
+// b64_compact: one launch, persistent grid, 16384-char tiles (256 threads
+// x 64 chars) in the order of the look-back counter (lookback.cuh). A tile
+// classifies each char once through a 256-entry shared table (0..63
+// alphabet, SKIP whitespace and positions past `length`, INVALID),
+// block-scans the kept counts, stages its codes in shared memory,
+// publishes (kept, least invalid key pos << 8 | 1, kept before it) and the
+// source indices of its last three kept chars, looks back for its offset
+// and stores the staged codes as aligned 16-byte chunks there. The last
+// tile writes nvalid, first_bad, nvalid_at_bad and tail_start; tail_start
+// needs nvalid, so that tile walks back over the published counts to the
+// tile holding the kept char of rank nvalid & ~3 (far back when the last
+// tiles are whitespace) and reads its index there. Then every block zeroes
+// its share of codes[nvalid, n).
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 4)
+    compact_kernel(const T* __restrict__ c, long long n, long long length,
+                   int url, int both, int nt, su::Lookback lb,
+                   uint8_t* __restrict__ out, long long* __restrict__ res) {
+  __shared__ alignas(16) uint8_t s_codes[TILE + 16];  // (a word read past the last code)
+  __shared__ uint8_t s_table[256];
+  __shared__ int s_scan[NW];
+  __shared__ unsigned long long s_key[NW];
+  __shared__ int s_last[3];
+  __shared__ int s_tile;
+  __shared__ su::Triple s_excl;
+  for (int k = threadIdx.x; k < 256; k += THREADS)
+    s_table[k] = (uint8_t)classify(k, url != 0, both != 0);
+  const bool vec_out = aligned(out, 16);
+  const int tid = threadIdx.x;
+
+  for (;;) {
+    if (tid == 0) s_last[0] = s_last[1] = s_last[2] = -1;
+    const int t = su::claim_tile(lb, &s_tile);  // its barrier also covers the table
+    if (t >= nt) break;
+    const long long s = (long long)t * TILE + (long long)tid * PER;
+
+    // classify once; codes packed four to a word
+    uint32_t cw[PER / 4];
+#pragma unroll
+    for (int g = 0; g < PER / 16; ++g) codes16(c, s + 16 * g, length, s_table, cw + 4 * g);
+    // kept (alphabet) codes and INVALID ones, as bit 7 of each byte
+    uint32_t kw[PER / 4];
+    int cnt = 0, first = PER;
+#pragma unroll
+    for (int k = PER / 4 - 1; k >= 0; --k) {
+      kw[k] = ~(cw[k] | (cw[k] << 1)) & 0x80808080u;  // bits 7 and 6 clear
+      cnt += __popc(kw[k]);
+      const uint32_t bad = cw[k] & (cw[k] << 1) & 0x80808080u;  // 0xC0 and up
+      if (bad) first = 4 * k + ((__ffs(bad) - 1) >> 3);
+    }
+    int tile_cnt;
+    int slot = su::block_excl_scan<NW>(cnt, s_scan, &tile_cnt);
+    su::Triple own = su::triple(tile_cnt, tile_cnt, su::NO_EVENT);
+    if (__syncthreads_or(first < PER)) {
+      unsigned long long key =
+          first < PER ? ((unsigned long long)(s + first) << 8) | 1 : su::NO_EVENT;
+      key = su::block_min_u64<NW>(key, s_key);
+      const long long epos = (long long)(key >> 8);
+      int pre = 0;
+#pragma unroll
+      for (int k = 0; k < PER / 4; ++k) {
+        const long long d = epos - (s + 4 * k);  // kept chars of word k before epos
+        pre += __popc(kw[k] & (d >= 4 ? 0xFFFFFFFFu : d <= 0 ? 0u : (1u << (8 * d)) - 1u));
+      }
+      pre = su::block_sum<NW>(pre, s_scan);
+      own = su::triple(tile_cnt, pre, key);
+    }
+    // the source indices of the tile's last three kept chars
+    if (cnt > 0 && slot + cnt > tile_cnt - 3) {
+      int r = slot + cnt - 1;  // rank of the thread's last kept char
+#pragma unroll
+      for (int j = PER - 1; j >= 0; --j) {
+        if (kw[j >> 2] >> (8 * (j & 3) + 7) & 1) {
+          if (r >= tile_cnt - 3) s_last[tile_cnt - 1 - r] = (int)(s + j);
+          --r;
+        }
       }
     }
-  } else {  // unit loads: also for views that are not 16-byte aligned
+    // stage the kept codes in order
 #pragma unroll
-    for (int j = 0; j < PER; ++j) v[j] = p0 + j < length ? c[p0 + j] : -1;
-  }
-#pragma unroll
-  for (int j = 0; j < PER; ++j)
-    code[j] = v[j] < 0 ? SKIP : v[j] > 0xFF ? INVALID : classify(v[j], url, both);
-}
+    for (int j = 0; j < PER; ++j)
+      if (kw[j >> 2] >> (8 * (j & 3) + 7) & 1)
+        s_codes[slot++] = (uint8_t)(cw[j >> 2] >> (8 * (j & 3)));
+    __syncthreads();
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    count_kernel(const T* __restrict__ c, long long length, int url, int both,
-                 int* __restrict__ counts, unsigned long long* __restrict__ keys,
-                 int* __restrict__ prefix) {
-  __shared__ unsigned long long s_key[NW];
-  __shared__ int s_sum[NW];
-  const long long p0 = blockIdx.x * TILE + threadIdx.x * PER;
-  int code[PER];
-  load_codes(c, p0, length, url, both, code);
-  int cnt = 0;
-  unsigned long long key = su::NO_EVENT;
+    // publish, look back, publish the inclusive value
+    if (tid < 32) {
+      if (tid == 0) {
+        int* x = reinterpret_cast<int*>(lb.extra + t);
+        su::st_relaxed(x, s_last[0]);
+        su::st_relaxed(x + 1, s_last[1]);
+        su::st_relaxed(x + 2, s_last[2]);
+        __threadfence();
+        su::publish_aggregate(lb, t, own);
+      }
+      const su::Triple excl =
+          t > 0 ? su::lookback_prefix(lb, t) : su::triple(0, 0, su::NO_EVENT);
+      const su::Triple inc = su::combine(excl, own);
+      if (tid == 0) {
+        if (t > 0) su::publish_inclusive(lb, t, inc);
+        s_excl = excl;
+      }
+      if (t == nt - 1) {
+        const int lane = tid;
+        long long tail = length;
+        int k = inc.count & 3;
+        if (k) {  // the k-th kept char from the end has rank nvalid & ~3
+          for (int j = t;; j -= 32) {
+            const int i = j - lane;
+            const int tc = i >= 0 ? su::wait_slot(lb.agg + i).count : 0;
+            int inc_c = tc;
 #pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    cnt += code[j] <= 63;
-    if (key == su::NO_EVENT && code[j] == INVALID)
-      key = ((unsigned long long)(p0 + j) << 8) | 1;
-  }
-  key = su::block_min_u64<NW>(key, s_key);
-  const int tile_cnt = su::block_sum<NW>(cnt, s_sum);
-  // kept chars of this thread strictly before the tile's first invalid one
-  const long long epos = (long long)(key >> 8);
-  int pre = 0;
-#pragma unroll
-  for (int j = 0; j < PER; ++j) pre += code[j] <= 63 && p0 + j < epos;
-  const int tile_pre = su::block_sum<NW>(pre, s_sum);
-  if (threadIdx.x == 0) {
-    counts[blockIdx.x] = tile_cnt;
-    keys[blockIdx.x] = key;
-    prefix[blockIdx.x] = tile_pre;
-  }
-}
+            for (int d = 1; d < 32; d <<= 1) {
+              const int y = __shfl_up_sync(su::FULL, inc_c, d);
+              if (lane >= d) inc_c += y;
+            }
+            const unsigned hit = __ballot_sync(su::FULL, inc_c >= k);
+            if (hit) {
+              const int src = __ffs(hit) - 1;
+              int idx = 0;
+              if (lane == src) {
+                __threadfence();
+                idx = su::ld_relaxed(reinterpret_cast<const int*>(lb.extra + i) +
+                                     (k - (inc_c - tc) - 1));
+              }
+              tail = __shfl_sync(su::FULL, idx, src);
+              break;
+            }
+            k -= __shfl_sync(su::FULL, inc_c, 31);
+          }
+        }
+        if (lane == 0) {
+          const bool bad = inc.key != su::NO_EVENT;
+          res[0] = inc.count;
+          res[1] = (long long)(inc.key >> 8);
+          res[2] = bad ? inc.before : 0;
+          res[3] = tail;
+        }
+      }
+    }
+    __syncthreads();
+    if (tile_cnt == 0) continue;
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    emit_kernel(const T* __restrict__ c, long long length, int url, int both,
-                const long long* __restrict__ off,
-                const long long* __restrict__ nvalid,
-                uint8_t* __restrict__ out, long long* __restrict__ tail_start) {
-  __shared__ uint8_t s_codes[TILE];
-  __shared__ int s_scan[NW];
-  const long long p0 = blockIdx.x * TILE + threadIdx.x * PER;
-  int code[PER];
-  load_codes(c, p0, length, url, both, code);
-  int cnt = 0;
+    // store codes [0, tile_cnt) at out[base ..] as aligned 16-byte chunks
+    const long long base = s_excl.count;
+    const int sh = (int)(base & 15);
+    uint8_t* dst = out + (base - sh);
+    const int end = sh + tile_cnt;
+    for (int q = tid; q * 16 < end; q += THREADS) {
+      const int u0 = q * 16 - sh;  // shared index of the chunk's first code
+      if (vec_out && u0 >= 0 && u0 + 16 <= tile_cnt) {
+        // five aligned words of s_codes, shifted by the chunk's byte phase
+        const uint32_t* sw = reinterpret_cast<const uint32_t*>(s_codes) + (u0 >> 2);
+        const int ph = 8 * (u0 & 3);
+        uint32_t w[5];
 #pragma unroll
-  for (int j = 0; j < PER; ++j) cnt += code[j] <= 63;
-  int tile_cnt;
-  int slot = su::block_excl_scan<NW>(cnt, s_scan, &tile_cnt);
-  const long long base = off[blockIdx.x];
-  const long long nv = *nvalid;
-  const long long nfull = nv & ~3ll;
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    if (code[j] > 63) continue;
-    s_codes[slot] = (uint8_t)code[j];
-    if (nv > nfull && base + slot == nfull) *tail_start = p0 + j;
-    ++slot;
+        for (int i = 0; i < 5; ++i) w[i] = sw[i];
+        __stcs(reinterpret_cast<uint4*>(dst + q * 16),
+               make_uint4(__funnelshift_r(w[0], w[1], ph), __funnelshift_r(w[1], w[2], ph),
+                          __funnelshift_r(w[2], w[3], ph), __funnelshift_r(w[3], w[4], ph)));
+      } else {
+        for (int i = u0 < 0 ? 0 : u0; i < u0 + 16 && i < tile_cnt; ++i) out[base + i] = s_codes[i];
+      }
+    }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < tile_cnt; i += THREADS) out[base + i] = s_codes[i];
+
+  // the zero tail past nvalid
+  const su::Triple last = su::block_wait_inclusive(lb, nt - 1, &s_excl);
+  su::zero_share(out, last.count, n, blockIdx.x, gridDim.x);
 }
 
 // 4 code bytes (one little-endian word) -> their 3 decoded bytes in the
@@ -332,61 +460,40 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <typename T>
-int compact_count(const T* c, long long length, int url, int both, int nt,
-                  int* counts, unsigned long long* keys, int* prefix,
-                  void* stream) {
-  count_kernel<T><<<nt, THREADS, 0, (cudaStream_t)stream>>>(
-      c, length, url, both, counts, keys, prefix);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int compact_emit(const T* c, long long length, int url, int both, int nt,
-                 const long long* off, const long long* nvalid, uint8_t* out,
-                 long long* tail_start, void* stream) {
-  emit_kernel<T><<<nt, THREADS, 0, (cudaStream_t)stream>>>(
-      c, length, url, both, off, nvalid, out, tail_start);
+int compact(const T* c, long long n, long long length, int url, int both,
+            int nt, void* scratch, uint8_t* out, long long* res, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int rc = su::lookback_reset(scratch, nt, st);
+  if (rc != 0) return rc;
+  static int cap = 0;
+  if (cap == 0) cap = su::resident_blocks(compact_kernel<T>, THREADS);
+  const long long want = nt > (n + 65535) / 65536 ? nt : (n + 65535) / 65536;
+  const int grid = want < cap ? (int)want : cap;
+  compact_kernel<T><<<grid, THREADS, 0, st>>>(
+      c, n, length, url, both, nt, su::lookback_carve(scratch, nt), out, res);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Count pass over nt = ceil(length / TILE) tiles of uint8 (b64_compact8_*)
-// or uint16 (b64_compact16_*) chars: per tile the kept count, the least
-// invalid key (BIG << 8 when none) and the kept chars before it. Returns
-// cudaGetLastError().
-extern "C" int b64_compact8_count(const uint8_t* c, long long length, int url,
-                                  int both, int nt, int* counts,
-                                  unsigned long long* keys, int* prefix,
-                                  void* stream) {
-  return compact_count(c, length, url, both, nt, counts, keys, prefix, stream);
+// Compaction of chars[:length] (uint8: b64_compact8, uint16 char16:
+// b64_compact16) in one launch over nt = ceil(length / TILE) >= 1 tiles:
+// out (uint8[n]) gets the code of every alphabet char in order, zero from
+// nvalid on; res (int64[4]) = nvalid, first_bad (BIG when none),
+// nvalid_at_bad (0 when none), tail_start (the source index of the kept
+// char of rank nvalid & ~3, or length when nvalid is a multiple of 4).
+// `scratch` holds 16 + 48 nt bytes (lookback.cuh); its head is cleared here on
+// `stream` first. Returns cudaGetLastError().
+extern "C" int b64_compact8(const uint8_t* c, long long n, long long length,
+                            int url, int both, int nt, void* scratch,
+                            uint8_t* out, long long* res, void* stream) {
+  return compact(c, n, length, url, both, nt, scratch, out, res, stream);
 }
 
-extern "C" int b64_compact16_count(const uint16_t* c, long long length,
-                                   int url, int both, int nt, int* counts,
-                                   unsigned long long* keys, int* prefix,
-                                   void* stream) {
-  return compact_count(c, length, url, both, nt, counts, keys, prefix, stream);
-}
-
-// Emit pass: tile t's codes go to out[off[t] + i]; *tail_start gets the
-// source index of the kept char of rank *nvalid & ~3 when *nvalid is not a
-// multiple of 4 (the caller sets it to length first). The rest of ``out``
-// is left as the caller zeroed it.
-extern "C" int b64_compact8_emit(const uint8_t* c, long long length, int url,
-                                 int both, int nt, const long long* off,
-                                 const long long* nvalid, uint8_t* out,
-                                 long long* tail_start, void* stream) {
-  return compact_emit(c, length, url, both, nt, off, nvalid, out, tail_start,
-                      stream);
-}
-
-extern "C" int b64_compact16_emit(const uint16_t* c, long long length, int url,
-                                  int both, int nt, const long long* off,
-                                  const long long* nvalid, uint8_t* out,
-                                  long long* tail_start, void* stream) {
-  return compact_emit(c, length, url, both, nt, off, nvalid, out, tail_start,
-                      stream);
+extern "C" int b64_compact16(const uint16_t* c, long long n, long long length,
+                             int url, int both, int nt, void* scratch,
+                             uint8_t* out, long long* res, void* stream) {
+  return compact(c, n, length, url, both, nt, scratch, out, res, stream);
 }
 
 // out[3g .. 3g+2] = the 3 bytes of codes[4g .. 4g+3], g < groups.

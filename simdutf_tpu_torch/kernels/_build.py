@@ -34,24 +34,22 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
-#: C signature of every entry point (all return int: a cudaError_t)
+#: C signature of every entry point, the stream last (all return int: a
+#: cudaError_t)
 SIGNATURES = {
     "census_utf8": (_P, _I64, _I64, _P, _P),
     "utf8_first_event": (_P, _I64, _P, _P),
     "utf8_count": (_P, _I64, _I32, _P, _P),
     "ascii_first_bad": (_P, _I64, _P, _P),
-    "compose16_count": (_P, _I64, _I64, _I32, _P, _P, _P, _P),
-    "compose16_emit": (_P, _I64, _I64, _I32, _I32, _P, _P, _P, _P),
+    "compose16": (_P, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P),
     "census_utf16": (_P, _I64, _I32, _P, _P),
     "utf16_first_bad": (_P, _I64, _I32, _P, _P),
     "utf16_count": (_P, _I64, _I32, _I32, _P, _P),
     "utf16_to_well_formed": (_P, _I64, _I64, _I32, _P, _P),
     "compose8_count": (_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P),
     "compose8_emit": (_P, _I64, _I32, _I32, _I32, _P, _P, _I64, _P, _P),
-    "b64_compact8_count": (_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P),
-    "b64_compact16_count": (_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P),
-    "b64_compact8_emit": (_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P),
-    "b64_compact16_emit": (_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P),
+    "b64_compact8": (_P, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _P),
+    "b64_compact16": (_P, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _P),
     "b64_pack": (_P, _I64, _P, _P),
     "b64_encode": (_P, _I64, _I32, _P, _P),
     "utf32_first_bad": (_P, _I64, _P, _P),
@@ -198,6 +196,15 @@ def call(name: str, *args) -> None:
     rc = getattr(lib(), name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError_t {rc})")
+
+
+def lookback_scratch(nt: int, device) -> torch.Tensor:
+    """Scratch of a look-back kernel over ``nt`` tiles (csrc/lookback.cuh's
+    ``Lookback`` layout): a 16-byte counter, then 16 bytes a tile for its
+    aggregate slot, 16 for its inclusive slot and 16 for extra words.
+    Uncleared: the entry point clears the counter and the slots on the
+    stream."""
+    return torch.empty(16 + 48 * nt, dtype=torch.uint8, device=device)
 
 
 def check_bytes(b: torch.Tensor, length: int) -> str:

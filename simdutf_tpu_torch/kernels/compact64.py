@@ -3,18 +3,23 @@
 Port of simdutf_tpu/kernels/butterfly64.compact_codes (Pallas
 ``_phase_b64_kernel`` + phase C16's placement) with the decode's exact
 contract, but not the same algorithm: on a CUDA tensor
-:func:`compact_codes` launches the count pass and the emit pass of
-csrc/base64.cu with the glue of ops/common.tile_glue between them, as
-compose8 does; on a CPU tensor it runs :func:`compact_codes_ref`.
+:func:`compact_codes` makes one launch of csrc/base64.cu's compaction
+kernel (uint8 or char16 chars), a single pass with a decoupled look-back
+scan across tiles (csrc/lookback.cuh) that also writes the zeros past
+nvalid and the four scalars; on a CPU tensor it runs
+:func:`compact_codes_ref`.
 
 The TPU kernel compacts each 32 KiB tile with butterfly rounds because its
 scatter serialised, and bounds how many tile segments an output window
 may span (``cand_ok``), so all-whitespace stretches send the JAX caller
-to its scatter engine. Here a block scan gives every alphabet char its
-slot, the codes are staged in shared memory, and each tile writes one
-contiguous run: no bound, no fallback, one result for every input. Tiles
-are 4096 chars (256 threads x 16), uint8 or uint16 (char16) chars, with
-no alignment demand on the buffer size: the ragged last tile is masked.
+to its scatter engine. Here each char is read and classified once through
+a shared table, a block scan gives every alphabet char its slot, the codes
+are staged in shared memory, and each tile writes one contiguous run at
+the offset its look-back finds: no bound, no fallback, one result for
+every input. Tiles are 16384 chars (256 threads x 64), with no alignment
+demand on the buffer size: the ragged last tile is masked. ``tail_start``
+needs the total, so the last tile walks back over the per-tile counts to
+the tile holding the kept char of rank ``nvalid & ~3``.
 """
 
 from __future__ import annotations
@@ -22,9 +27,9 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ..ops.common import BIG, tile_glue
+from ..ops.common import BIG
 
-TILE = 4096  # chars per block; = TILE in csrc/base64.cu
+TILE = 16384  # chars per tile; = TILE in csrc/base64.cu
 
 
 def compact_codes_ref(chars: torch.Tensor, length: int, url: bool, both: bool):
@@ -57,24 +62,15 @@ def compact_codes(chars: torch.Tensor, length: int, url: bool, both: bool):
     if check(chars, length) == "cpu":
         return compact_codes_ref(chars, length, url, both)
     dev = chars.device
-    codes = torch.zeros(n, dtype=torch.uint8, device=dev)
-    tail_start = torch.full((), length, dtype=torch.int64, device=dev)
-    nt = -(-length // TILE)
-    if nt == 0:  # nothing in range: nothing to launch
+    if length == 0:  # nothing in range: nothing to launch
         z = torch.zeros((), dtype=torch.int64, device=dev)
-        return codes, z, z + BIG, z, tail_start
-    kind = "16" if wide else "8"
-    counts = torch.empty(nt, dtype=torch.int32, device=dev)
-    keys = torch.empty(nt, dtype=torch.int64, device=dev)
-    prefix = torch.empty(nt, dtype=torch.int32, device=dev)
-    _build.call(f"b64_compact{kind}_count", chars.data_ptr(), length, int(url),
-                int(both), nt, counts.data_ptr(), keys.data_ptr(),
-                prefix.data_ptr())
-
-    off, nvalid, _, first_bad, _, nvalid_at_bad, _ = tile_glue(counts, keys, prefix)
-
-    _build.call(f"b64_compact{kind}_emit", chars.data_ptr(), length, int(url),
-                int(both), nt, off.data_ptr(), nvalid.data_ptr(),
-                codes.data_ptr(), tail_start.data_ptr())
+        return torch.zeros(n, dtype=torch.uint8, device=dev), z, z + BIG, z, z
+    nt = -(-length // TILE)
+    codes = torch.empty(n, dtype=torch.uint8, device=dev)
+    res = torch.empty(4, dtype=torch.int64, device=dev)
+    scratch = _build.lookback_scratch(nt, dev)
+    _build.call("b64_compact16" if wide else "b64_compact8", chars.data_ptr(),
+                n, length, int(url), int(both), nt, scratch.data_ptr(),
+                codes.data_ptr(), res.data_ptr())
     _build.count_launch("b64_compact")
-    return codes, nvalid, first_bad, nvalid_at_bad, tail_start
+    return codes, res[0], res[1], res[2], res[3]

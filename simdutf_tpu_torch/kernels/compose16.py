@@ -2,20 +2,19 @@
 
 Port of simdutf_tpu/kernels/butterfly.to_utf16_compose (Pallas
 ``_phase_b_kernel`` + ``_phase_c_kernel``) with the same contract, but not
-the same algorithm: on a CUDA tensor :func:`to_utf16_compose` launches the
-count pass and the emit pass of csrc/compose16.cu, with the small glue
-that the JAX to_utf16_compose runs between its two kernels, as torch ops
-on the per-tile vectors; on a CPU tensor it runs
-:func:`to_utf16_compose_ref`.
+the same algorithm: on a CUDA tensor :func:`to_utf16_compose` makes one
+launch of csrc/compose16.cu, a single pass with a decoupled look-back scan
+across tiles (csrc/lookback.cuh) that also writes the zeros past out_len
+and the five scalars; on a CPU tensor it runs :func:`to_utf16_compose_ref`.
 
-The traffic floor is HBM bytes (two reads of the input, one write of the
-units); this first version sits well above it, bound by per-byte lattice
-work (PERF.md). The TPU engine compacts each tile with roll/select
-butterflies because scatters were slow on that chip; here a block-wide
-scan gives every unit its slot, the units are staged in shared memory, and
-each tile writes them as contiguous runs. Tiles are 4 KiB (256 threads x
-16 bytes), with no alignment demand on the buffer size: the ragged last
-tile is masked.
+The traffic floor is HBM bytes: one read of the input, one write of the
+whole uint16 output. Each 16 KiB tile (256 threads x 64 bytes) is read
+once, checked with a mask test that may flag valid text but never misses
+an event (only a flagged tile computes the exact event keys), and its
+units are staged in shared memory and stored as aligned 16-byte runs at
+the offset its look-back finds. The TPU engine compacts each tile with
+roll/select butterflies because scatters were slow on that chip. There is
+no alignment demand on the buffer size: the ragged last tile is masked.
 """
 
 from __future__ import annotations
@@ -23,9 +22,11 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ..ops.common import BIG, tile_glue, to_u16
+from ..ops.common import BIG, positions, shift_right, to_u16
 
-TILE = 4096  # bytes per block; = TILE in csrc/compose16.cu
+TILE = 16384  # bytes per tile; = TILE in csrc/compose16.cu
+_NO_EVENT = BIG << 8
+_TOO_LONG = 3
 
 
 def to_utf16_compose_ref(b: torch.Tensor, length: int, big_endian: bool,
@@ -37,6 +38,29 @@ def to_utf16_compose_ref(b: torch.Tensor, length: int, big_endian: bool,
     err_pos, err_code, out, total, err_len = o8._utf16_general_parts(
         b, length, big_endian, clamp)
     return to_u16(out), total, err_pos != BIG, err_pos, err_code, err_len
+
+
+def _tiles(n: int, length: int) -> int:
+    """Tiles of a call: the byte at ``length`` may carry a unit (the low
+    surrogate of a 4-byte lead at ``length - 1``)."""
+    return -(-min(n, length + 1) // TILE)
+
+
+def _launch(b: torch.Tensor, length: int, big_endian: bool, clamp: bool):
+    """One launch on a CUDA tensor with ``length >= 1``: (out, res int64[4]
+    = total, err_pos, err_code, err_len; err_any bool[1]; scratch, nt)."""
+    n = b.shape[0]
+    dev = b.device
+    nt = _tiles(n, length)
+    out = torch.empty(n, dtype=torch.int16, device=dev).view(torch.uint16)
+    res = torch.empty(4, dtype=torch.int64, device=dev)
+    err_any = torch.empty(1, dtype=torch.bool, device=dev)
+    scratch = _build.lookback_scratch(nt, dev)
+    _build.call("compose16", b.data_ptr(), n, length, nt, int(big_endian),
+                int(clamp), scratch.data_ptr(), out.data_ptr(), res.data_ptr(),
+                err_any.data_ptr())
+    _build.count_launch("utf8_to_utf16_compose")
+    return out, res, err_any, scratch, nt
 
 
 def to_utf16_compose(b: torch.Tensor, length: int, big_endian: bool,
@@ -56,24 +80,98 @@ def to_utf16_compose(b: torch.Tensor, length: int, big_endian: bool,
     length = int(length)
     if _build.check_bytes(b, length) == "cpu":
         return to_utf16_compose_ref(b, length, big_endian, clamp)
+    if length == 0:  # nothing carries a unit: nothing to launch
+        z = torch.zeros((), dtype=torch.int64, device=b.device)
+        out = torch.zeros(b.shape[0], dtype=torch.int16, device=b.device)
+        return out.view(torch.uint16), z, z != 0, z + BIG, z, z
+    out, res, err_any, _, _ = _launch(b, length, big_endian, clamp)
+    return out, res[0], err_any[0], res[1], res[2], res[3]
+
+
+def tile_aggregates_ref(b: torch.Tensor, length: int):
+    """Plain per-tile (units, least event key pos << 8 | code, units before
+    that key; BIG << 8 and the tile's units when it has no event) of the
+    tiles of a call, each an int64 tensor, from the event lattice of
+    csrc/utf8.cuh: a bad lead reports its code at itself, a continuation
+    that no lead among the three bytes before it covers reports TOO_LONG at
+    itself."""
+    from ..ops import utf8 as o8
+
     n = b.shape[0]
-    dev = b.device
-    out = torch.zeros(n, dtype=torch.int16, device=dev).view(torch.uint16)
-    nt = -(-min(n, length + 1) // TILE)
-    if nt == 0:  # empty buffer: nothing to launch
-        z = torch.zeros((), dtype=torch.int64, device=dev)
-        return out, z, z != 0, z + BIG, z, z
-    counts = torch.empty(nt, dtype=torch.int32, device=dev)
-    keys = torch.empty(nt, dtype=torch.int64, device=dev)
-    prefix = torch.empty(nt, dtype=torch.int32, device=dev)
-    _build.call("compose16_count", b.data_ptr(), n, length, nt,
-                counts.data_ptr(), keys.data_ptr(), prefix.data_ptr())
+    nt = _tiles(n, length)
+    cls = o8.classify(b, length)
+    idx = positions(n, b.device)
+    in_r = idx < length
+    seqlen = cls["seqlen"]
+    covered = ((shift_right(seqlen, 1) > 1) | (shift_right(seqlen, 2) > 2)
+               | (shift_right(seqlen, 3) > 3))
+    code = torch.where(cls["is_cont"],
+                       torch.where(covered, 0, _TOO_LONG), cls["err"])
+    key = torch.where(in_r & (code != 0), (idx << 8) | code, _NO_EVENT)
+    keep = (in_r & ~cls["is_cont"]) | shift_right(cls["lead4"], 1)
 
-    off, total, err_any, err_pos, err_code, err_len, out_len = tile_glue(
-        counts, keys, prefix)
+    def tiled(x, fill):
+        pad = nt * TILE - n
+        x = torch.cat([x, x.new_full((max(pad, 0),), fill)])[: nt * TILE]
+        return x.view(nt, TILE)
 
-    _build.call("compose16_emit", b.data_ptr(), n, length, nt,
-                int(big_endian), off.data_ptr(),
-                (out_len if clamp else total).data_ptr(), out.data_ptr())
-    _build.count_launch("utf8_to_utf16_compose")
-    return out, total, err_any, err_pos, err_code, err_len
+    keep_t = tiled(keep.to(torch.int64), 0)
+    key_t = tiled(key, _NO_EVENT)
+    kmin = key_t.min(dim=1).values
+    count = keep_t.sum(dim=1)
+    pos_t = tiled(idx, BIG)
+    before = (keep_t * (pos_t < (kmin >> 8).unsqueeze(1))).sum(dim=1)
+    return count, kmin, before
+
+
+def _tile_aggregates(b: torch.Tensor, length: int):
+    """The per-tile aggregates the kernel publishes for its look-back, as
+    (count, key, before) int64 tensors, for tests: on a CUDA tensor read
+    from the launch's scratch (a tile the fast check passes publishes no
+    event, so each key equals :func:`tile_aggregates_ref`'s only if the
+    check misses no event), on a CPU tensor the plain version's."""
+    length = int(length)
+    if _build.check_bytes(b, length) == "cpu" or length == 0:
+        return tile_aggregates_ref(b, length)
+    _, _, _, scratch, nt = _launch(b, length, False, True)
+    # aggregate slots (csrc/lookback.cuh): count | (before | 2^31) << 32,
+    # then key | 2^63
+    slots = scratch[16: 16 + 16 * nt].view(torch.int64).view(nt, 2)
+    lo, hi = slots[:, 0], slots[:, 1]
+    return lo & 0x7FFFFFFF, hi & (2**63 - 1), (lo >> 32) & 0x7FFFFFFF
+
+
+def tile_flags_ref(b: torch.Tensor, length: int, tile: int = TILE):
+    """Plain version of csrc/compose16.cu's fast check, per byte where the
+    kernel works on words: bool per tile (of ``tile`` bytes), True where
+    the check flags. A tile flags when a byte of it or of the four after it
+    fails the structural test (a byte is a continuation exactly when a lead
+    one, two or three bytes before asks for one) or a value test (F8-FF;
+    C0/C1; F5-F7; E0, ED, F0, F4 against the next byte's bits 5 and 4), or
+    when one of the four bytes before it is F8-FF. It may flag valid text;
+    it must flag every tile that holds an event of
+    :func:`tile_aggregates_ref`'s lattice."""
+    n = b.shape[0]
+    nt = -(-min(n, length + 1) // tile)
+    x = torch.zeros(nt * tile + 8, dtype=torch.int32, device=b.device)
+    m = min(n, length)
+    x[4: 4 + m] = b[:m].to(torch.int32)  # 4 zero bytes before position 0
+    cont = (x & 0xC0) == 0x80
+    lead, l3, l4, l5 = x >= 0xC0, x >= 0xE0, x >= 0xF0, x >= 0xF8
+    lo = x & 0x0F
+    need = shift_right(lead, 1) | shift_right(l3, 2) | shift_right(l4, 3)
+    err = (need ^ cont) | l5 | (lead & ~l3 & ((x & 0x1E) == 0))
+    err |= l4 & ~l5 & ((x & 7) >= 5)
+    b5, b54 = (x & 0x20) != 0, (x & 0x30) != 0
+    err |= shift_right(l3 & ~l4 & (lo == 0), 1) & ~b5
+    err |= shift_right(l3 & ~l4 & (lo == 0xD), 1) & b5
+    err |= shift_right(l4 & ~l5 & (lo == 0), 1) & ~b54
+    err |= shift_right(l4 & ~l5 & (lo == 4), 1) & b54
+    # tile k covers x[4 + k*tile, 4 + (k+1)*tile); it looks at errors in
+    # [start, end + 4) and at F8-FF in [start - 4, start)
+    e = err.to(torch.int32)
+    win = torch.cumsum(torch.cat([e.new_zeros(1), e]), 0)
+    f5 = torch.cumsum(torch.cat([e.new_zeros(1), l5.to(torch.int32)]), 0)
+    start = 4 + tile * torch.arange(nt, device=b.device)
+    flag = (win[start + tile + 4] - win[start]) > 0
+    return flag | ((f5[start] - f5[start - 4]) > 0)

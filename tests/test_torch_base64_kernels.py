@@ -32,7 +32,7 @@ from simdutf_tpu_torch.ops import base64_ops as tob
 from test_butterfly64 import CORPORA
 
 MODES = [(False, False), (True, False), (False, True)]  # (url, both)
-T = jkb64.TILE  # 32 KiB butterfly tiles (the port's own are 4096 chars)
+T = jkb64.TILE  # 32 KiB butterfly tiles (the port's own are 16384 chars)
 _jscatter = jax.jit(job.decode_bulk, static_argnames=("url", "both"))
 # own jit objects, traced only while the butterfly is pinned
 _jrouted = jax.jit(job.decode_bulk_routed, static_argnames=("url", "both"))

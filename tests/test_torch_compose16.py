@@ -20,7 +20,7 @@ from simdutf_tpu.kernels import butterfly as jb
 from simdutf_tpu.ops import utf8 as jo8
 from simdutf_tpu_torch.kernels import compose16 as tc
 
-T = jb.TILE  # 32 KiB butterfly tiles (the port's own tiles are 4 KiB)
+T = jb.TILE  # 32 KiB butterfly tiles (the port's own tiles are 16 KiB)
 
 
 def _compare(data: bytes, be: bool, length: int | None = None):

@@ -151,7 +151,8 @@ def test_utf16_kernels_on_unaligned_views(cuda, be):
 
 def _inputs64():
     """(name, chars) for the base64 kernels: MIME text, dense whitespace,
-    invalid chars at 0, at the 4096-char tile edges and at the end."""
+    invalid chars at 0, at 4095-4096 and 8191 and at the end (the
+    compaction's own tile edges are in ``_b64_cases``)."""
     rng = np.random.default_rng(2)
     raw = pyb64.b64encode(rng.bytes(30_000))
     mime = b"\r\n".join(raw[i: i + 76] for i in range(0, len(raw), 76))
@@ -330,8 +331,9 @@ def test_latin1_to_utf8_compose_matches_plain_version(cuda, n):
 
 
 def test_compose_wrappers_make_no_host_sync(cuda):
-    """Count pass, tile_glue and emit pass of every compose and compaction
-    wrapper run without a device-to-host read."""
+    """Every compose and compaction wrapper runs without a device-to-host
+    read: count pass, tile_glue and emit pass of the two-pass ones, the
+    status reset and the one launch of compose16 and b64_compact."""
     data = ("ab é 東 \U0001f642 " * 5000).encode()
     x = torch.from_numpy(np.frombuffer(data + b"\xff", np.uint8).copy()).to(cuda)
     text = data.decode()
@@ -910,3 +912,198 @@ def test_pallas_tier_matches_the_torch_tier(cuda, case, data):
     want_full, want_out = plain.base64_to_binary_details(enc)
     assert full == want_full and np.array_equal(out, want_out)
     assert tier.safety_net == 0
+
+
+# -- the single-pass look-back kernels: compose16 and b64_compact ------------
+
+T16 = kc.TILE  # bytes per compose16 tile
+T64 = kc64.TILE  # chars per b64_compact tile
+_MIX = ("ab é 東 \U0001f642 Жм ".encode() * 40_000)
+
+
+def _mixed(size: int) -> bytes:
+    """Mixed text cut to ``size`` bytes at a character start."""
+    d = (_MIX * (size // len(_MIX) + 1))[:size].decode("utf-8", "ignore").encode()
+    return d + b"a" * (size - len(d))
+
+
+def _compose16_cases():
+    """(case, bytes): errors, invalid bytes and 4-byte sequences across
+    the tile edges and at a tile's first and last three bytes; cut
+    sequences at the length; many tiles."""
+    base = _mixed(4 * T16 + 999)
+    out = [("len1", b"a"), ("len1-lead4", b"\xf0"), ("mixed", base)]
+    edges = (0, 1, 2, T16 - 3, T16 - 2, T16 - 1, T16, T16 + 1, T16 + 2,
+             2 * T16 - 1, 3 * T16 + 2)
+    for pos in edges:
+        for bad in (b"\xff", b"\x80", b"\xc0\xaf", b"\xe0\x80\x80", b"\xed\xa0\x80",
+                    b"\xf4\x90\x80\x80", b"\xf0\x9f"):
+            d = bytearray(base)
+            d[pos:pos + len(bad)] = bad
+            out.append((f"{bad.hex()}@{pos}", bytes(d)))
+        d = bytearray(b"a" * len(base))
+        d[pos:pos + 4] = "\U0001f642".encode()  # a valid 4-byte sequence
+        out.append((f"astral@{pos}", bytes(d)))
+    out.append(("orphan-after-f8@edge", b"a" * (T16 - 2) + b"\xf8\x80\x80" + b"a" * 50))
+    out.append(("lead4@len-1", base[:T16 - 1] + b"\xf0"))
+    return out
+
+
+@pytest.mark.parametrize("case,data", _compose16_cases(), ids=[c for c, _ in _compose16_cases()])
+def test_compose16_tile_edges_match_plain_version(cuda, case, data):
+    L = len(data)
+    n = L + 7  # garbage past the length
+    buf = np.random.default_rng(L).integers(0, 256, n).astype(np.uint8)
+    buf[:L] = np.frombuffer(data, np.uint8)
+    x = torch.from_numpy(buf).to(cuda)
+    for length in (L, n, 0) if case == "mixed" else (L,):
+        for be in (False, True):
+            for clamp in (True, False):
+                assert _same(kc.to_utf16_compose(x, length, be, clamp),
+                             kc.to_utf16_compose_ref(x, length, be, clamp)), (length, be, clamp)
+    torch.cuda.synchronize()
+
+
+def test_compose16_many_tiles_and_zero_tail(cuda):
+    """Far more tiles than resident blocks (look-back depth, out-of-order
+    starts); each call right after freeing a same-sized 0xFF buffer, so a
+    zero the kernel failed to write shows."""
+    L = 24 * 2**20
+    data = bytearray(_mixed(L))
+    bad = bytearray(data)
+    bad[L - 5000] = 0xFF
+    for d in (data, bad):
+        x = torch.from_numpy(np.frombuffer(bytes(d) + b"\0" * 4096, np.uint8).copy()).to(cuda)
+        for be, clamp in ((False, True), (True, False)):
+            junk = torch.full((x.numel(),), -1, dtype=torch.int16, device=cuda)
+            del junk
+            got = kc.to_utf16_compose(x, L, be, clamp)
+            assert _same(got, kc.to_utf16_compose_ref(x, L, be, clamp))
+    torch.cuda.synchronize()
+
+
+def _seq_tiles(seqs: list, off) -> np.ndarray:
+    """One compose16 tile of 'a' per sequence, the sequence at byte
+    ``off`` of it ("end": ending at the tile's last byte)."""
+    buf = np.full((len(seqs), T16), ord("a"), np.uint8)
+    for i, s in enumerate(seqs):
+        o = T16 - len(s) if off == "end" else off
+        buf[i, o:o + len(s)] = np.frombuffer(s, np.uint8)
+    return buf.reshape(-1)
+
+
+def _fast_check_sequences():
+    """Every 1- and 2-byte sequence; 3-byte sequences of every first
+    byte with the class-boundary values after it; seeded 4-byte sequences
+    over every lead F0-FF."""
+    edge = [0x00, 0x41, 0x7F, 0x80, 0x8F, 0x90, 0x9F, 0xA0, 0xBF, 0xC0, 0xC1,
+            0xC2, 0xDF, 0xE0, 0xED, 0xEF, 0xF0, 0xF4, 0xF5, 0xF8, 0xFF]
+    seqs = [bytes([a]) for a in range(256)]
+    seqs += [bytes([a, b]) for a in range(256) for b in range(256)]
+    seqs += [bytes([a, b, c]) for a in range(256) for b in edge for c in edge]
+    rng = np.random.default_rng(4)
+    for lead in range(0xF0, 0x100):
+        for _ in range(300):
+            seqs.append(bytes([lead]) + bytes(rng.choice(edge, 3).astype(np.uint8)))
+    return seqs
+
+
+@pytest.mark.parametrize("off", [0, T16 // 2 - 1, "end"])
+def test_compose16_fast_check_misses_no_event(cuda, off):
+    """Each tile's published key (the fast check passes a tile with no
+    event) against the plain lattice's per-tile minimum."""
+    seqs = _fast_check_sequences()
+    per_call = 2048
+    for i in range(0, len(seqs), per_call):
+        buf = _seq_tiles(seqs[i:i + per_call], off)
+        x = torch.from_numpy(buf).to(cuda)
+        L = x.numel()
+        got = kc._tile_aggregates(x, L)
+        want = kc.tile_aggregates_ref(x, L)
+        assert torch.equal(got[1].cpu(), want[1].cpu()), i
+        assert _same(got, want), i
+    torch.cuda.synchronize()
+
+
+def _b64_cases():
+    """(case, chars, length, buffer size): invalid chars across the new
+    tile edges, whitespace runs longer than a look-back window (32 tiles),
+    tail_start far before the last tile, length 1 and N."""
+    raw = pyb64.b64encode(np.random.default_rng(5).bytes(3 * T64))
+    mime = b"\r\n".join(raw[i: i + 76] for i in range(0, len(raw), 76))
+    out = [("zero", b"", 0, 4), ("one", b"Q", 1, 4),
+           ("len==N", mime[:2 * T64 + 4], 2 * T64 + 4, 2 * T64 + 4)]
+    for pos in (0, 1, 2, T64 - 3, T64 - 2, T64 - 1, T64, T64 + 1, T64 + 2, 2 * T64 - 1):
+        d = bytearray(mime)
+        d[pos] = ord("*")
+        out.append((f"bad@{pos}", bytes(d), len(d), len(d) + 13))
+    ws = b" " * (40 * T64)
+    for k in (1, 2, 3):  # nvalid % 4 == k, then whitespace for 40 tiles
+        d = mime[:T64 + 100] + b"QUJD"[:k] + ws
+        out.append((f"tail{k}-far-back", d, len(d), len(d) + 3))
+    d = ws + b"TWFu" + ws + b"QU"
+    out.append(("ws-runs", d, len(d), len(d) + 2))
+    out.append(("all-ws", ws, len(ws), len(ws)))
+    return out
+
+
+@pytest.mark.parametrize("case,data,L,n", _b64_cases(), ids=[c[0] for c in _b64_cases()])
+@pytest.mark.parametrize("url,both", [(False, False), (True, False), (False, True)])
+@pytest.mark.parametrize("wide", [False, True])
+def test_b64_compact_tile_edges_match_plain_version(cuda, case, data, L, n, url, both, wide):
+    buf = np.random.default_rng(n).integers(0, 256, n).astype(np.uint8)
+    buf[:len(data)] = np.frombuffer(data, np.uint8)
+    if wide:
+        b16 = buf.astype(np.uint16)
+        b16[len(data):] |= 0x100  # garbage past the length above 0xFF too
+        x = torch.from_numpy(b16.view(np.int16)).to(cuda).view(torch.uint16)
+    else:
+        x = torch.from_numpy(buf).to(cuda)
+    junk = torch.full((n,), 0xFF, dtype=torch.uint8, device=cuda)
+    del junk
+    assert _same(kc64.compact_codes(x, L, url, both), kc64.compact_codes_ref(x, L, url, both))
+    torch.cuda.synchronize()
+
+
+def test_b64_compact_many_tiles_and_zero_tail(cuda):
+    """The MIME base64 of 12 MiB (far more tiles than resident blocks),
+    uint8 and char16, each call after freeing a same-sized 0xFF buffer."""
+    raw = pyb64.b64encode(np.random.default_rng(6).bytes(12 * 2**20))
+    mime = b"\r\n".join(raw[i: i + 76] for i in range(0, len(raw), 76)) + b"QQ"
+    L = len(mime)
+    buf = np.zeros(-(-(L + 100) // 4) * 4, np.uint8)
+    buf[:L] = np.frombuffer(mime, np.uint8)
+    for x in (torch.from_numpy(buf).to(cuda),
+              torch.from_numpy(buf.astype(np.uint16).view(np.int16)).to(cuda).view(torch.uint16)):
+        junk = torch.full((x.numel(),), 0xFF, dtype=torch.uint8, device=cuda)
+        del junk
+        got = kc64.compact_codes(x, L, False, False)
+        assert _same(got, kc64.compact_codes_ref(x, L, False, False))
+        assert int(got[4]) < L  # nvalid is not a multiple of 4
+    torch.cuda.synchronize()
+
+
+def test_single_pass_wrappers_launch_once(cuda):
+    """compose16 and b64_compact: one kernel of their own a call (the
+    status reset is a memset inside the entry point, no torch fill)."""
+    from simdutf_tpu_torch.kernels import _build
+
+    data = _mixed(5 * T16)
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda)
+    chars = torch.from_numpy(np.frombuffer(pyb64.b64encode(data), np.uint8).copy()).to(cuda)
+    kc.to_utf16_compose(x, x.numel(), False)
+    kc64.compact_codes(chars, chars.numel(), False, False)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+
+    for call in (lambda: kc.to_utf16_compose(x, x.numel(), False),
+                 lambda: kc64.compact_codes(chars, chars.numel(), False, False)):
+        _build.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "emset" not in e.key and "emcpy" not in e.key]
+        assert sum(_build.LAUNCHES.values()) == 1
+        assert len(kernels) <= 1, kernels  # the profiler may miss it, never add one
