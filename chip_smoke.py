@@ -8,8 +8,8 @@
                                  # package in DIR: run a parent tree and
                                  # this one in turns to compare them
     python3 chip_smoke.py --compact-times [--root DIR]
-                                 # the same for compose16, b64_compact and
-                                 # their routed calls
+                                 # the same for compose16, compose32,
+                                 # b64_compact and their routed calls
 
 Nine paths, each driven through the port's own api
 (``simdutf_tpu_torch.api`` on "cuda"): UTF-8 -> UTF-16LE/BE with UTF-8
@@ -121,9 +121,9 @@ few minutes of the 20-minute limit. Phases, each fatal on failure:
                rate, the library yardsticks where one PyTorch call computes
                the same function (a call that computes another, such as a
                yes/no for a position, is logged as a note), the device rows
-               of #24, #26, their flag fill and their casts, widen32's
-               launch plan, and a torch.profiler breakdown of each routed
-               call.
+               of #24, #26, their flag fill and their casts, the launch
+               plans of widen32 and narrow3 (#23), and a torch.profiler
+               breakdown of each routed call.
 
 Before the last line it prints one JSON object with every kernel (launches
 on its path, largest error against its plain version, ms, ``device_us``
@@ -285,11 +285,19 @@ KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
     "lane_shapecast_probe": ("simdutf_tpu_torch/csrc/probe.cu",
                              "simdutf_tpu/kernels/validate.py:209", []),
 }
-#: headers a kernel's source includes that hold part of its design (the
-#: single-pass look-back scan that compose16 and b64_compact share)
-HEADERS = {"utf8_to_utf16_compose": ["simdutf_tpu_torch/csrc/lookback.cuh",
-                                     "simdutf_tpu_torch/csrc/utf8.cuh"],
-           "b64_compact": ["simdutf_tpu_torch/csrc/lookback.cuh"]}
+#: headers a kernel's source includes that hold part of its design: the
+#: single-pass look-back scan that compose16, compose32 and b64_compact
+#: share, the tile pieces of the two UTF-8 look-back kernels (the fast
+#: check, the window, the exact triple, the decode), and the bulk-copy
+#: tile ring of the three tiled fixed-rate kernels
+_UTF8_LOOKBACK = ["simdutf_tpu_torch/csrc/utf8_tile.cuh", "simdutf_tpu_torch/csrc/lookback.cuh",
+                  "simdutf_tpu_torch/csrc/utf8.cuh"]
+HEADERS = {"utf8_to_utf16_compose": _UTF8_LOOKBACK,
+           "utf8_to_utf32_compose": _UTF8_LOOKBACK,
+           "b64_compact": ["simdutf_tpu_torch/csrc/lookback.cuh"],
+           "uniform3_utf16_to_utf8": ["simdutf_tpu_torch/csrc/bulk.cuh"],
+           "latin1_widen_utf32": ["simdutf_tpu_torch/csrc/bulk.cuh"],
+           "bmp_widen_utf32": ["simdutf_tpu_torch/csrc/bulk.cuh"]}
 #: HBM rate of one H100 SXM (NVIDIA's data sheet, at the 700 W limit): the
 #: bound of these kernels, which all stream their bytes
 PEAK_BYTES_PER_S = 3.35e12
@@ -395,8 +403,8 @@ def parity_cases(big: int):
     mixed = _whole(bench.mixed_corpus(300_000))
     cases.append(("mixed-300k", mixed))
     cases.append(("empty", b""))
-    # errors at compose16's tile edges, at a tile's first and last three
-    # bytes, at 0, at length-1, cut at length
+    # errors at compose16's tile edges (compose32's: the same size), at a
+    # tile's first and last three bytes, at 0, at length-1, cut at length
     from simdutf_tpu_torch.kernels import compose16 as kc
 
     t = kc.TILE
@@ -2543,6 +2551,8 @@ def timestr_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dict]
             note_call(lambda w=w: w.view(torch.int16).to(torch.uint8),
                       f"w.view(torch.int16).to(torch.uint8) over the {w.numel()}-unit bucket "
                       f"(uint8[n], not the kernel's uint8[3n])", card)
+        if k == "uniform3_utf16_to_utf8":
+            log(f"plan: {narrow3_plan_text(w.numel())} [{card}]")
         del w
     log(f"bytes: {moved}")
     return ms, moved, library
@@ -2745,6 +2755,21 @@ def widen32_plan_text() -> str:
         for src, p in ((s, plan(s)) for s in (1, 2)))
 
 
+def narrow3_plan_text(units: int) -> str:
+    """The launch plan of the tiled kernel behind #23 for ``units`` units
+    of an aligned buffer: grid, tile, stages, shared memory, the split."""
+    from simdutf_tpu_torch.kernels import transcode as ktr
+
+    plan = getattr(ktr, "narrow3_plan", None)
+    if plan is None:
+        return "no narrow3 plan (a grid-stride kernel)"
+    p = plan(0, units)
+    return (f"uniform3_utf16_to_utf8 on {units} units: grid {p['grid']} x {p['threads']} "
+            f"threads ({p['blocks_per_sm']} a SM), tile {p['tile_units']} units, "
+            f"{p['stages']} stages, {p['smem_bytes']} B of shared memory a block, head "
+            f"{p['head']}, {p['ntiles']} whole tiles")
+
+
 def host_us(fn, iters: int = 20) -> float:
     """Host-clock µs per call of ``fn`` while its launches queue up: the
     host's cost of a call, where the device takes longer."""
@@ -2787,13 +2812,15 @@ def fixed_rate_times_phase(card: str, big: int = CORPUS_BYTES) -> dict:
         for us, count, key in rows:
             log(f"  {us:9.2f} us/call  x{count:g}  {key[:90]}")
     log(f"plan: {widen32_plan_text()}")
+    log(f"plan: {narrow3_plan_text(big)}")
     return out
 
 
 def compact_times_phase(card: str, big: int = CORPUS_BYTES) -> dict:
-    """compose16 (with and without its clamp) on the 64 MiB mixed corpus
-    and b64_compact (uint8 and char16) on the MIME corpus, and their routed
-    calls (``ops.utf8.to_utf16``, ``ops.base64_ops.decode_bulk_routed``):
+    """compose16 (with and without its clamp) and compose32 on the 64 MiB
+    mixed corpus and b64_compact (uint8 and char16) on the MIME corpus,
+    and their routed calls (``ops.utf8.to_utf16``, ``ops.utf8.to_utf32``,
+    ``ops.base64_ops.decode_bulk_routed``):
     ms per call by CUDA events (the median of two ``cuda_ms`` runs),
     every device row of one call from torch.profiler (the wrapper's own
     kernels apart from torch's), and the host's µs a call. Only names the
@@ -2805,6 +2832,7 @@ def compact_times_phase(card: str, big: int = CORPUS_BYTES) -> dict:
     from simdutf_tpu_torch import impl
     from simdutf_tpu_torch.kernels import compact64 as kc64
     from simdutf_tpu_torch.kernels import compose16 as kc
+    from simdutf_tpu_torch.kernels import compose32 as kc32
     from simdutf_tpu_torch.ops import base64_ops as ob
     from simdutf_tpu_torch.ops import utf8 as o8
 
@@ -2818,6 +2846,8 @@ def compact_times_phase(card: str, big: int = CORPUS_BYTES) -> dict:
         "compose16 (no clamp)": (lambda: kc.to_utf16_compose(x, L, False, False),
                                  L + 2 * x.numel()),
         "to_utf16 (ops.utf8, routed)": (lambda: o8.to_utf16(x, L, False), 0),
+        "compose32": (lambda: kc32.to_utf32_compose(x, L), L + 4 * x.numel()),
+        "to_utf32 (ops.utf8, routed)": (lambda: o8.to_utf32(x, L), 0),
         "b64_compact (uint8)": (lambda: kc64.compact_codes(m8, M, False, False),
                                 M + m8.numel()),
         "b64_compact (char16)": (lambda: kc64.compact_codes(m16, M, False, False),
@@ -3022,8 +3052,8 @@ def main() -> int:
                         help="only build and time the fixed-rate kernels and their casts "
                              "(fixed_rate_times_phase); print one JSON line")
     parser.add_argument("--compact-times", action="store_true",
-                        help="only build and time compose16, b64_compact and their routed "
-                             "calls (compact_times_phase); print one JSON line")
+                        help="only build and time compose16, compose32, b64_compact and their "
+                             "routed calls (compact_times_phase); print one JSON line")
     parser.add_argument("--root", default=None,
                         help="import simdutf_tpu_torch from this checkout (with "
                              "--fixed-rate-times or --compact-times: a parent tree "

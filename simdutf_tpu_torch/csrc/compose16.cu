@@ -16,7 +16,9 @@
 //     simdutf's lookup tables (C0/C1, E0 and ED, F0 and F4-F7 against the
 //     next byte, F8-FF), as bit masks on the words. Only a tile the check
 //     flags computes the exact key of utf8.cuh's event_key lattice and the
-//     units before it, in the same launch; valid text does no 64-bit min;
+//     units before it, in the same launch; valid text does no 64-bit min.
+//     The window, the marks, the check and the exact path are
+//     utf8_tile.cuh's, shared with compose32.cu;
 //  4. stages its bytes and the offsets of its kept bytes in shared memory
 //     and publishes (units, least key, units before it);
 //  5. while warp 0 looks back for the exclusive prefix (the output offset,
@@ -36,7 +38,7 @@
 // uint16 output. This kernel stays above it, bound by integer instructions
 // a byte (the check, the decode, the staging; about 60 a byte, PERF.md);
 // the word-wise masks and the per-unit decode keep that count down.
-#include "lookback.cuh"
+#include "utf8_tile.cuh"
 
 namespace {
 
@@ -45,97 +47,17 @@ constexpr int NW = THREADS / 32;
 constexpr int PER = 64;                    // bytes a thread
 constexpr int WORDS = PER / 4;             // 16
 constexpr int TILE = THREADS * PER;        // = kernels/compose16.TILE
-constexpr uint32_t H = 0x80808080u;
-
-// window word k holds bytes s - 8 + 4k .. s - 5 + 4k of thread start s:
-// words 0-1 the halo before, 2..WORDS+1 the thread's own, WORDS+2 after
-constexpr int NWIN = WORDS + 3;
-
-// bit 7 of each byte set where that byte lies below `lim`, of the word of
-// bytes q0 .. q0 + 3
-__device__ __forceinline__ uint32_t below(long long q0, long long lim) {
-  const long long k = lim - q0;
-  return k >= 4 ? H : k <= 0 ? 0u : H & ((1u << (8 * k)) - 1u);
-}
-
-// byte classes of a word, as bit 7 of each byte
-struct Classes {
-  uint32_t cont, lead, l3, l4, l5;
-};
-
-__device__ __forceinline__ Classes classes(uint32_t w) {
-  Classes c;
-  const uint32_t hi = w & H;
-  c.cont = hi & ~(w << 1);          // 10xxxxxx
-  c.lead = hi & (w << 1);           // 11xxxxxx
-  c.l3 = c.lead & (w << 2);         // >= E0
-  c.l4 = c.l3 & (w << 3);           // >= F0
-  c.l5 = c.l4 & (w << 4);           // >= F8: never valid
-  return c;
-}
-
-// leads whose next byte decides an error: E0 (next < A0 is overlong), ED
-// (next >= A0 a surrogate), F0 (next < 90 overlong), F4 (next >= 90 too
-// large)
-struct Special {
-  uint32_t e0, ed, f0, f4;
-};
-
-__device__ __forceinline__ Special special(uint32_t w, const Classes& c) {
-  const uint32_t lo = w & 0x0F0F0F0Fu;
-  const uint32_t zero = ~(lo + 0x7F7F7F7Fu) & H;                 // low nibble 0
-  const uint32_t is_d = ~((lo ^ 0x0D0D0D0Du) + 0x7F7F7F7Fu) & H;  // low nibble D
-  const uint32_t is_4 = ~((lo ^ 0x04040404u) + 0x7F7F7F7Fu) & H;  // low nibble 4
-  const uint32_t l3x = c.l3 & ~c.l4, l4x = c.l4 & ~c.l5;
-  Special s;
-  s.e0 = l3x & zero;
-  s.ed = l3x & is_d;
-  s.f0 = l4x & zero;
-  s.f4 = l4x & is_4;
-  return s;
-}
-
-__device__ __forceinline__ uint32_t fwd(uint32_t prev, uint32_t cur, int bytes) {
-  return __funnelshift_l(prev, cur, 8 * bytes);
-}
-
-// Bytes of word w (classes c, s; the previous word's cp, sp) where the fast check flags. Every
-// event of the lattice at a byte of a tile shows as a flag at that byte,
-// at up to three bytes after it, or (an orphan continuation after an
-// F8-FF byte) as the F8-FF byte up to three bytes before it.
-__device__ __forceinline__ uint32_t check_word(uint32_t w, const Classes& c,
-                                               const Special& s,
-                                               const Classes& cp,
-                                               const Special& sp) {
-  const uint32_t need = fwd(cp.lead, c.lead, 1) | fwd(cp.l3, c.l3, 2) |
-                        fwd(cp.l4, c.l4, 3);
-  uint32_t err = (need ^ c.cont) | c.l5;
-  // C0 and C1: a 2-byte lead with bits 4..1 clear is always an error
-  err |= c.lead & ~c.l3 & ~((w & 0x1E1E1E1Eu) + 0x7F7F7F7Fu) & H;
-  // F5-F7: too large whatever follows
-  err |= c.l4 & ~c.l5 & ((w & 0x07070707u) + 0x7B7B7B7Bu) & H;
-  const uint32_t b5 = (w << 2) & H;                             // bit 5 set
-  const uint32_t b54 = ((w & 0x30303030u) + 0x7F7F7F7Fu) & H;   // bit 5 or 4
-  err |= (fwd(sp.e0, s.e0, 1) & ~b5) | (fwd(sp.ed, s.ed, 1) & b5) |
-         (fwd(sp.f0, s.f0, 1) & ~b54) | (fwd(sp.f4, s.f4, 1) & b54);
-  return err;
-}
+constexpr int NWIN = WORDS + 3;            // window words (utf8_tile.cuh)
 
 // The unit of the kept byte at tile offset r (s_w holds the tile's bytes
 // from its start, zero past `length`, and 4 bytes after its end; `a4` says
-// the byte before r is a 4-byte lead). Branch-free: the lead's payload and
-// three continuations' six bits make t; the sequence length (the lead's
-// leading ones) says how much of t is the code point, as
-// su::decode_cp's per-length formulas do (0 for F8-FF); a code point above
-// 0xFFFF gives its high surrogate, and the byte after a 4-byte lead its
-// low surrogate.
+// the byte before r is a 4-byte lead), branch-free: the lead's code point
+// (su::lead_cp), its high surrogate above 0xFFFF, and the byte after a
+// 4-byte lead its low surrogate.
 template <bool BE>
 __device__ __forceinline__ uint32_t unit_of(const uint32_t* s_w, int r, bool a4) {
-  const uint32_t X = __funnelshift_r(s_w[r >> 2], s_w[(r >> 2) + 1], 8 * (r & 3));
-  const int k = __clz(~(X << 24));  // leading ones of the byte at r
-  const uint32_t t = ((X & (0x7Fu >> k)) << 18) | ((X >> 8 & 0x3F) << 12) |
-                     ((X >> 16 & 0x3F) << 6) | (X >> 24 & 0x3F);
-  const uint32_t cp = k > 4 ? 0u : t >> (24 - 6 * (k > 1 ? k : 1));
+  const uint32_t X = su::window_at(s_w, r);
+  const uint32_t cp = su::lead_cp(X);
   uint32_t v = cp > 0xFFFF ? 0xD7C0 + (cp >> 10) : cp;
   if (a4) v = 0xDC00 | ((X & 0x0F00) >> 2) | (X >> 16 & 0x3F);
   if (BE) v = ((v << 8) | (v >> 8)) & 0xFFFF;
@@ -174,32 +96,7 @@ __global__ void __launch_bounds__(THREADS, 4)
 
     // 1. the window
     uint32_t w[NWIN];
-    const bool full = vec_in && s >= 8 && s + PER + 4 <= length;
-    if (full) {
-      const uint2 h = *reinterpret_cast<const uint2*>(b + s - 8);
-      w[0] = h.x;
-      w[1] = h.y;
-#pragma unroll
-      for (int k = 0; k < WORDS / 4; ++k) {
-        const uint4 m = *reinterpret_cast<const uint4*>(b + s + 16 * k);
-        w[2 + 4 * k] = m.x;
-        w[3 + 4 * k] = m.y;
-        w[4 + 4 * k] = m.z;
-        w[5 + 4 * k] = m.w;
-      }
-      w[NWIN - 1] = *reinterpret_cast<const uint32_t*>(b + s + PER);
-    } else {
-#pragma unroll
-      for (int k = 0; k < NWIN; ++k) {
-        uint32_t v = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const long long q = s - 8 + 4 * k + j;
-          if (q >= 0 && q < length) v |= (uint32_t)b[q] << (8 * j);
-        }
-        w[k] = v;
-      }
-    }
+    const bool full = su::load_window<WORDS>(b, s, length, vec_in, w);
     // the tile's bytes for the decode
 #pragma unroll
     for (int k = 0; k < WORDS / 4; ++k)
@@ -211,61 +108,14 @@ __global__ void __launch_bounds__(THREADS, 4)
     // 2-3. kept bytes (bit 7 of each byte; bit 6: after a 4-byte lead)
     // and the fast check
     uint32_t km[WORDS];
-    uint32_t flag = 0;
-    int cnt = 0;
-    Classes cp = classes(w[1]);
-    Special sp = special(w[1], cp);
-    if (tid == 0) flag |= cp.l5;  // an F8-FF byte up to 4 before the tile
-#pragma unroll
-    for (int k = 0; k < WORDS; ++k) {
-      const uint32_t x = w[2 + k];
-      const Classes c = classes(x);
-      const Special sx = special(x, c);
-      flag |= check_word(x, c, sx, cp, sp);
-      const uint32_t after4 = fwd(cp.l4 & ~cp.l5, c.l4 & ~c.l5, 1);
-      uint32_t keep = ~c.cont & H;
-      if (!full) {
-        const long long q = s + 4 * k;
-        keep = ((keep & below(q, length)) | after4) & below(q, n);
-      } else {
-        keep |= after4;
-      }
-      km[k] = keep | ((after4 & keep) >> 1);
-      cnt += __popc(keep);
-      cp = c;
-      sp = sx;
-    }
-    if (tid == THREADS - 1) {  // events of the tile's last leads
-      const Classes c = classes(w[NWIN - 1]);
-      flag |= check_word(w[NWIN - 1], c, special(w[NWIN - 1], c), cp, sp);
-    }
+    int cnt;
+    const uint32_t flag = su::mark_and_check<WORDS, true>(w, s, length, n, full, km, &cnt);
 
     int tile_cnt;
     int slot = su::block_excl_scan<NW>(cnt, s_scan, &tile_cnt);
     su::Triple own = su::triple(tile_cnt, tile_cnt, su::NO_EVENT);
-    if (__syncthreads_or(flag != 0)) {
-      // exact key of the lattice, and the units before it
-      // (a rolled loop over the staged bytes: this path is rare, and its
-      // registers would otherwise count against every tile's occupancy)
-      unsigned long long key = su::NO_EVENT;
-#pragma unroll 1
-      for (int j = 0; j < PER && s + j < length; ++j) {
-        const int r = tid * PER + j;
-        const unsigned long long e =
-            su::event_key(s + j, s_b[r], s_b[r + 1], s_b[r + 2], s_b[r + 3],
-                          s_b[r - 1], s_b[r - 2], s_b[r - 3]);
-        key = e < key ? e : key;
-      }
-      key = su::block_min_u64<NW>(key, s_key);
-      int pre = 0;
-      if (key != su::NO_EVENT) {
-        const long long epos = (long long)(key >> 8);
-#pragma unroll
-        for (int k = 0; k < WORDS; ++k) pre += __popc(km[k] & H & below(s + 4 * k, epos));
-      }
-      pre = su::block_sum<NW>(pre, s_scan);
-      own = su::triple(tile_cnt, key == su::NO_EVENT ? tile_cnt : pre, key);
-    }
+    if (__syncthreads_or(flag != 0))  // exact key of the lattice, units before it
+      own = su::exact_triple<NW, WORDS>(s_b, s, length, km, tile_cnt, s_key, s_scan);
     // units of this tile that may be written (with the clamp, those before
     // its first error); the tile's kept offsets, in order
     const int lim = clamp && own.key != su::NO_EVENT ? own.before : tile_cnt;

@@ -37,6 +37,7 @@
 // then zeros, in the same pass. Every block ORs its threads' flags and makes
 // at most one atomicOr. Offsets are 64-bit: 4n bytes pass 2^31 once n
 // passes 2^29 words.
+#include "bulk.cuh"
 #include "utf16.cuh"
 
 namespace {
@@ -306,15 +307,15 @@ __global__ void __launch_bounds__(256)
 // The design keeps the loads and the stores in flight with no registers
 // spent on them. A persistent grid of one wave (the SMs times the blocks
 // resident on each) walks whole tiles of WIDEN_TILE words, tile
-// blockIdx.x + k * gridDim.x. Each block keeps a ring of WIDEN_STAGES
-// stages in shared memory, each an input tile and an output tile. Thread 0
-// keeps the next stages' input in flight with 1-D bulk copies
-// (cp.async.bulk, completing on the stage's mbarrier); the threads widen
-// from the input tile into the output tile (16-byte shared stores); thread
-// 0 writes the output tile out with one bulk copy from shared memory, with
-// the L2 evict-first hint, and waits for a stage's copy to have read its
-// tile before the stage is written again. A tile wholly at or past the
-// length loads nothing and writes zeros.
+// blockIdx.x + k * gridDim.x, on bulk.cuh's tile_ring: a ring of
+// WIDEN_STAGES stages in shared memory, each an input tile and an output
+// tile. Thread 0 keeps the next stages' input in flight with 1-D bulk
+// copies (cp.async.bulk, completing on the stage's mbarrier); the threads
+// widen from the input tile into the output tile (16-byte shared stores);
+// thread 0 writes the output tile out with one bulk copy from shared
+// memory, with the L2 evict-first hint, and waits for a stage's copy to
+// have read its tile before the stage is written again. A tile wholly at
+// or past the length loads nothing and writes zeros.
 //
 // The edges take the element path of the grid-stride kernels above, steps
 // of four words in the same kernel: the head up to the first element whose
@@ -325,56 +326,10 @@ __global__ void __launch_bounds__(256)
 constexpr int WIDEN_THREADS = 256;
 constexpr int WIDEN_TILE = 4096;  // words a tile: 16 KB out
 constexpr int WIDEN_STAGES = 3;
-// cp.async.bulk's L2 cache-policy operand for "evict first" (CUTLASS's
-// CacheHintSm90::EVICT_FIRST)
-constexpr unsigned long long EVICT_FIRST = 0x12F0000000000000ull;
 
 template <int SRC>
 constexpr int widen_smem() {  // dynamic shared memory a block
   return WIDEN_STAGES * (SRC + 4) * WIDEN_TILE;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_wait(const uint64_t* bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// ``bytes`` (a multiple of 16; both addresses 16-byte aligned) from global
-// to shared memory, counted on ``bar``, which expects them
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          int bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// ``bytes`` from shared to global memory as one bulk group
-__device__ __forceinline__ void bulk_store(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint "
-      "[%0], [%1], %2, %3;\n" ::"l"(reinterpret_cast<uint64_t>(dst)),
-      "r"(smem_u32(src)), "r"(bytes), "l"(EVICT_FIRST)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
 // four elements from the 4 * SRC bytes w to words, native byte order
@@ -457,10 +412,7 @@ __global__ void __launch_bounds__(WIDEN_THREADS)
     widen32(const uint8_t* __restrict__ x, long long n, long long length,
             uint8_t* __restrict__ out, int* __restrict__ flag,
             long long head, long long ntiles) {
-  constexpr int IN = SRC * WIDEN_TILE, OUT = 4 * WIDEN_TILE, S = WIDEN_STAGES;
   extern __shared__ __align__(128) uint8_t smem[];
-  __shared__ uint64_t full[S];
-  __shared__ int any_bad;
   const int tid = threadIdx.x;
   bool bad = false;
 
@@ -474,59 +426,13 @@ __global__ void __launch_bounds__(WIDEN_THREADS)
                                vout, out);
 
   // the tiles
-  if (tid == 0) {
-    for (int s = 0; s < S; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                       smem_u32(&full[s]))
-                   : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    any_bad = 0;
-  }
-  __syncthreads();
-  uint8_t* const in_s = smem;           // S input tiles
-  uint8_t* const out_s = smem + S * IN;  // S output tiles
-  // thread 0: the input of the block's j-th tile, if it has any in range;
-  // tiles with input come first, so stage s's barrier completes once for
-  // each of its tiles j with input, in phase (j / S) & 1
-  auto fetch = [&](long long j) {
-    const long long g = blockIdx.x + j * gridDim.x, e0 = head + g * WIDEN_TILE;
-    if (g < ntiles && e0 < length) {
-      const int s = (int)(j % S);
-      bulk_load(in_s + s * IN, x + SRC * e0, IN, &full[s]);
-    }
-  };
-  if (tid == 0)
-    for (int j = 0; j < S; ++j) fetch(j);
-  for (long long j = 0;; ++j) {
-    const long long g = blockIdx.x + j * gridDim.x;
-    if (g >= ntiles) break;
-    const int s = (int)(j % S);
-    const long long e0 = head + g * WIDEN_TILE;
-    uint8_t* const ot = out_s + s * OUT;
-    if (e0 < length) {
-      mbar_wait(&full[s], (int)((j / S) & 1));
-      bad |= widen_tile<SRC, BE>(in_s + s * IN, ot, length - e0);
-    } else {
-#pragma unroll
-      for (int r = 0; r < OUT / (16 * WIDEN_THREADS); ++r)
-        reinterpret_cast<uint4*>(ot)[r * WIDEN_THREADS + tid] = make_uint4(0, 0, 0, 0);
-    }
-    // the shared stores, seen by the copy engine; the next stage's output
-    // tile read out by its last copy (groups up to j - S + 1)
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    if (tid == 0)
-      asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(S - 2) : "memory");
-    __syncthreads();
-    if (tid == 0) {
-      bulk_store(out + 4 * e0, ot, OUT);
-      fetch(j + S);
-    }
-  }
-  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-
-  if (__any_sync(0xFFFFFFFFu, bad) && (tid & 31) == 0) any_bad = 1;
-  __syncthreads();
-  if (tid == 0 && any_bad) atomicOr(flag, 1);
+  bad |= su::tile_ring<WIDEN_STAGES, WIDEN_TILE, SRC * WIDEN_TILE, 4 * WIDEN_TILE,
+                       WIDEN_THREADS>(
+      x + SRC * head, out + 4 * head, ntiles, length - head, smem,
+      [](const uint8_t* in, uint8_t* ot, long long live) {
+        return widen_tile<SRC, BE>(in, ot, live);
+      });
+  flag_block(bad, flag);
 }
 
 // blocks of widen32<SRC, BE> resident on one SM of the current device

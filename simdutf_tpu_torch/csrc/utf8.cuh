@@ -45,17 +45,6 @@ __device__ __forceinline__ int cp4_of(int x, int b1, int b2, int b3) {
          (b3 & 0x3F);
 }
 
-// mechanically decoded code point at a lead (0 for other bytes), as
-// ops/utf8.classify's ``cp``
-__device__ __forceinline__ int decode_cp(int x, int b1, int b2, int b3) {
-  if (x < 0x80) return x;
-  if ((x & 0xE0) == 0xC0) return ((x & 0x1F) << 6) | (b1 & 0x3F);
-  if ((x & 0xF0) == 0xE0)
-    return ((x & 0x0F) << 12) | ((b1 & 0x3F) << 6) | (b2 & 0x3F);
-  if ((x & 0xF8) == 0xF0) return cp4_of(x, b1, b2, b3);
-  return 0;
-}
-
 // error code of a non-continuation byte x followed by b1..b3 (0 = valid)
 __device__ __forceinline__ int lead_error(int x, int b1, int b2, int b3) {
   if (x < 0x80) return 0;

@@ -54,8 +54,7 @@ SIGNATURES = {
     "b64_encode": (_P, _I64, _I32, _P, _P),
     "utf32_first_bad": (_P, _I64, _P, _P),
     "utf32_count": (_P, _I64, _I32, _P, _P),
-    "compose32_count": (_P, _I64, _I32, _P, _P, _P, _P),
-    "compose32_emit": (_P, _I64, _I32, _P, _P, _P),
+    "compose32": (_P, _I64, _I64, _I32, _P, _P, _P, _P, _P),
     "composex_count": (_P, _I64, _I32, _P, _P, _P, _P),
     "composex_emit": (_P, _I64, _I32, _P, _P, _P),
     "latin1_utf8_count": (_P, _I64, _I32, _P, _P),
@@ -84,6 +83,7 @@ SIGNATURES = {
     "bmp_narrow_utf16": (_P, _I64, _I64, _I32, _P, _P, _P),
     "astral_utf32_to_utf16": (_P, _I64, _I64, _I32, _P, _P, _P),
     "widen32_plan": (_I32, _P),
+    "narrow3_plan": (_P, _I64, _P, _P),
     "utf8_swar_first_bad_word": (_P, _I64, _P, _P),
     "ascii_swar_first_bad_word": (_P, _I64, _P, _P),
     "utf16_swar_first_bad_word": (_P, _I64, _I32, _P, _P),

@@ -88,40 +88,52 @@ def to_utf16_compose(b: torch.Tensor, length: int, big_endian: bool,
     return out, res[0], err_any[0], res[1], res[2], res[3]
 
 
-def tile_aggregates_ref(b: torch.Tensor, length: int):
-    """Plain per-tile (units, least event key pos << 8 | code, units before
-    that key; BIG << 8 and the tile's units when it has no event) of the
-    tiles of a call, each an int64 tensor, from the event lattice of
-    csrc/utf8.cuh: a bad lead reports its code at itself, a continuation
-    that no lead among the three bytes before it covers reports TOO_LONG at
-    itself."""
+def event_keys_ref(b: torch.Tensor, length: int):
+    """Plain event key (pos << 8 | code, BIG << 8 where none) of every byte
+    of ``b`` under the event lattice of csrc/utf8.cuh (a bad lead reports
+    its code at itself, a continuation that no lead among the three bytes
+    before it covers reports TOO_LONG at itself), and ops/utf8.classify's
+    dict of the bytes."""
     from ..ops import utf8 as o8
 
     n = b.shape[0]
-    nt = _tiles(n, length)
     cls = o8.classify(b, length)
     idx = positions(n, b.device)
-    in_r = idx < length
     seqlen = cls["seqlen"]
     covered = ((shift_right(seqlen, 1) > 1) | (shift_right(seqlen, 2) > 2)
                | (shift_right(seqlen, 3) > 3))
     code = torch.where(cls["is_cont"],
                        torch.where(covered, 0, _TOO_LONG), cls["err"])
-    key = torch.where(in_r & (code != 0), (idx << 8) | code, _NO_EVENT)
-    keep = (in_r & ~cls["is_cont"]) | shift_right(cls["lead4"], 1)
+    return torch.where((idx < length) & (code != 0), (idx << 8) | code, _NO_EVENT), cls
+
+
+def tile_triples(keep: torch.Tensor, key: torch.Tensor, nt: int, tile: int):
+    """Per tile of ``tile`` bytes, the first ``nt``: (marked bytes, least
+    key, marked bytes before that key's position; BIG << 8 and the tile's
+    marked bytes when it has no event), each an int64 tensor."""
+    n = keep.shape[0]
+    idx = positions(n, keep.device)
 
     def tiled(x, fill):
-        pad = nt * TILE - n
-        x = torch.cat([x, x.new_full((max(pad, 0),), fill)])[: nt * TILE]
-        return x.view(nt, TILE)
+        pad = nt * tile - n
+        x = torch.cat([x, x.new_full((max(pad, 0),), fill)])[: nt * tile]
+        return x.view(nt, tile)
 
     keep_t = tiled(keep.to(torch.int64), 0)
-    key_t = tiled(key, _NO_EVENT)
-    kmin = key_t.min(dim=1).values
-    count = keep_t.sum(dim=1)
-    pos_t = tiled(idx, BIG)
-    before = (keep_t * (pos_t < (kmin >> 8).unsqueeze(1))).sum(dim=1)
-    return count, kmin, before
+    kmin = tiled(key, _NO_EVENT).min(dim=1).values
+    before = (keep_t * (tiled(idx, BIG) < (kmin >> 8).unsqueeze(1))).sum(dim=1)
+    return keep_t.sum(dim=1), kmin, before
+
+
+def tile_aggregates_ref(b: torch.Tensor, length: int):
+    """Plain per-tile (units, least event key pos << 8 | code, units before
+    that key; BIG << 8 and the tile's units when it has no event) of the
+    tiles of a call, each an int64 tensor, from :func:`event_keys_ref`'s
+    lattice."""
+    key, cls = event_keys_ref(b, length)
+    keep = ((positions(b.shape[0], b.device) < length) & ~cls["is_cont"]) | shift_right(
+        cls["lead4"], 1)
+    return tile_triples(keep, key, _tiles(b.shape[0], length), TILE)
 
 
 def _tile_aggregates(b: torch.Tensor, length: int):
@@ -134,8 +146,13 @@ def _tile_aggregates(b: torch.Tensor, length: int):
     if _build.check_bytes(b, length) == "cpu" or length == 0:
         return tile_aggregates_ref(b, length)
     _, _, _, scratch, nt = _launch(b, length, False, True)
-    # aggregate slots (csrc/lookback.cuh): count | (before | 2^31) << 32,
-    # then key | 2^63
+    return published_aggregates(scratch, nt)
+
+
+def published_aggregates(scratch: torch.Tensor, nt: int):
+    """(count, key, before) int64 tensors of the ``nt`` aggregate slots of
+    a look-back scratch (csrc/lookback.cuh: count | (before | 2^31) << 32,
+    then key | 2^63)."""
     slots = scratch[16: 16 + 16 * nt].view(torch.int64).view(nt, 2)
     lo, hi = slots[:, 0], slots[:, 1]
     return lo & 0x7FFFFFFF, hi & (2**63 - 1), (lo >> 32) & 0x7FFFFFFF

@@ -3,18 +3,22 @@
 Port of simdutf_tpu/kernels/butterfly32.to_utf32_compose (Pallas
 ``_phase_b32_kernel`` + ``_phase_c32_kernel``) with the contract of the
 JAX package's final result, not of the butterfly alone: on a CUDA tensor
-:func:`to_utf32_compose` launches the count pass and the emit pass of
-csrc/compose32.cu, with ops/common.tile_glue between them; on a CPU tensor
-it runs :func:`to_utf32_compose_ref`.
+:func:`to_utf32_compose` makes one launch of csrc/compose32.cu, a single
+pass with a decoupled look-back scan across tiles (csrc/lookback.cuh) that
+also writes the zeros past the total and the five scalars; on a CPU
+tensor it runs :func:`to_utf32_compose_ref`.
 
 The butterfly returns ``err_any`` and its caller reruns the scatter engine
 (ops/utf8._to_utf32_general) on any error; that engine writes the
 mechanically decoded code point of every in-range lead, valid or not, and
 does not zero the buffer past ``out_len``. This kernel gives that final
-buffer in one pass: its emit pass writes every lead's word through
-``total``. The traffic floor is HBM bytes (two reads of the input, one
-write of the words). Tiles are 4 KiB (256 threads x 16 bytes), with no
-alignment demand on the buffer size: the ragged last tile is masked.
+buffer in one pass: every lead writes its word through ``total``. The
+traffic floor is HBM bytes (one read of the input, one write of the whole
+int32 output). Each 16 KiB tile (256 threads x 64 bytes) is read once,
+checked with compose16's mask test (csrc/utf8_tile.cuh; only a flagged
+tile computes exact event keys), and its words are stored as aligned
+16-byte runs at the offset its look-back finds. There is no alignment
+demand on the buffer size: the ragged last tile is masked.
 """
 
 from __future__ import annotations
@@ -22,9 +26,10 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ..ops.common import BIG, tile_glue
+from .compose16 import event_keys_ref, published_aggregates, tile_triples
+from ..ops.common import BIG, positions
 
-TILE = 4096  # bytes per block; = TILE in csrc/compose32.cu
+TILE = 16384  # bytes per tile; = TILE in csrc/compose32.cu
 
 
 def to_utf32_compose_ref(b: torch.Tensor, length: int):
@@ -34,6 +39,27 @@ def to_utf32_compose_ref(b: torch.Tensor, length: int):
 
     err_pos, err_code, out, total, err_len = o8._utf32_general_parts(b, length)
     return out, total, err_pos != BIG, err_pos, err_code, err_len
+
+
+def _tiles(length: int) -> int:
+    """Tiles of a call: only in-range leads carry a word."""
+    return -(-length // TILE)
+
+
+def _launch(b: torch.Tensor, length: int):
+    """One launch on a CUDA tensor with ``length >= 1``: (out, res int64[4]
+    = total, err_pos, err_code, err_len; err_any bool[1]; scratch, nt)."""
+    n = b.shape[0]
+    dev = b.device
+    nt = _tiles(length)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    res = torch.empty(4, dtype=torch.int64, device=dev)
+    err_any = torch.empty(1, dtype=torch.bool, device=dev)
+    scratch = _build.lookback_scratch(nt, dev)
+    _build.call("compose32", b.data_ptr(), n, length, nt, scratch.data_ptr(),
+                out.data_ptr(), res.data_ptr(), err_any.data_ptr())
+    _build.count_launch("utf8_to_utf32_compose")
+    return out, res, err_any, scratch, nt
 
 
 def to_utf32_compose(b: torch.Tensor, length: int):
@@ -50,23 +76,31 @@ def to_utf32_compose(b: torch.Tensor, length: int):
     length = int(length)
     if _build.check_bytes(b, length) == "cpu":
         return to_utf32_compose_ref(b, length)
-    n = b.shape[0]
-    dev = b.device
-    out = torch.zeros(n, dtype=torch.int32, device=dev)
-    nt = -(-length // TILE)
-    if nt == 0:  # nothing in range: nothing to launch
-        z = torch.zeros((), dtype=torch.int64, device=dev)
+    if length == 0:  # nothing in range: nothing to launch
+        z = torch.zeros((), dtype=torch.int64, device=b.device)
+        out = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
         return out, z, z != 0, z + BIG, z, z
-    counts = torch.empty(nt, dtype=torch.int32, device=dev)
-    keys = torch.empty(nt, dtype=torch.int64, device=dev)
-    prefix = torch.empty(nt, dtype=torch.int32, device=dev)
-    _build.call("compose32_count", b.data_ptr(), length, nt,
-                counts.data_ptr(), keys.data_ptr(), prefix.data_ptr())
+    out, res, err_any, _, _ = _launch(b, length)
+    return out, res[0], err_any[0], res[1], res[2], res[3]
 
-    off, total, err_any, err_pos, err_code, err_len, _ = tile_glue(
-        counts, keys, prefix)
 
-    _build.call("compose32_emit", b.data_ptr(), length, nt, off.data_ptr(),
-                out.data_ptr())
-    _build.count_launch("utf8_to_utf32_compose")
-    return out, total, err_any, err_pos, err_code, err_len
+def tile_aggregates_ref(b: torch.Tensor, length: int):
+    """Plain per-tile (words, least event key pos << 8 | code, words
+    before that key; BIG << 8 and the tile's words when it has no event)
+    of the tiles of a call, each an int64 tensor: a word for every
+    in-range byte that is not a continuation, keys from compose16's
+    ``event_keys_ref`` lattice."""
+    key, cls = event_keys_ref(b, length)
+    keep = (positions(b.shape[0], b.device) < length) & ~cls["is_cont"]
+    return tile_triples(keep, key, _tiles(length), TILE)
+
+
+def _tile_aggregates(b: torch.Tensor, length: int):
+    """The per-tile aggregates the kernel publishes for its look-back, as
+    (count, key, before) int64 tensors, for tests: on a CUDA tensor read
+    from the launch's scratch, on a CPU tensor the plain version's."""
+    length = int(length)
+    if _build.check_bytes(b, length) == "cpu" or length == 0:
+        return tile_aggregates_ref(b, length)
+    _, _, _, scratch, nt = _launch(b, length)
+    return published_aggregates(scratch, nt)

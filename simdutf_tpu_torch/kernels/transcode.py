@@ -24,10 +24,14 @@ port's routes call these only on a class the census has proved, so they
 never read the flag; the tests hold it at 0 there.
 
 All seven kernels stream their bytes (floor: HBM bytes, the in-range input
-read once and the whole output written once).
+read once and the whole output written once). ``uniform3_utf16_to_utf8``
+runs the tiled bulk-copy kernel ``narrow3`` (:func:`narrow3_plan`); the
+other six are grid-stride kernels.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -207,6 +211,48 @@ def uniform3_utf16_to_utf8_ref(w: torch.Tensor, length: int, be: bool):
     bad = (((x < 0x800) | ((x >= 0xD800) & (x <= 0xDFFF)))
            & (positions(x.shape[0], x.device) < length))
     return bytes_out(by, 3 * length, 3 * w.shape[0]), _flag(bad)
+
+
+#: units a tile of narrow3 (= N3_TILE in csrc/transcode.cu)
+N3_TILE = 4096
+
+
+def narrow3_split(w_addr: int, n: int, out_addr: int) -> tuple[int, int]:
+    """Twin of csrc/transcode.cu's ``narrow3_split``: (head, ntiles) of
+    ``n`` units at address ``w_addr`` with their output at ``out_addr``.
+    Units [head, head + ntiles * N3_TILE) go by tiles, the rest (the head
+    and the tail after the last whole tile) by element steps. ``head`` is
+    the first unit whose input (2 bytes a unit) and output (3 bytes a
+    unit) both lie on the 16-byte grid, when a whole tile follows it; else
+    head = ntiles = 0 and every unit goes by steps."""
+    for h in range(16):
+        if (w_addr + 2 * h) % 16 == 0 and (out_addr + 3 * h) % 16 == 0:
+            return (h, (n - h) // N3_TILE) if n - h >= N3_TILE else (0, 0)
+    return 0, 0
+
+
+def narrow3_parts(w_addr: int, n: int, out_addr: int):
+    """(steps, tiles): the unit ranges [lo, hi) of narrow3's element steps
+    and of its tiles, in the order the kernel numbers them (the head as
+    one step, then the tail after the last whole tile in steps of 16)."""
+    head, ntiles = narrow3_split(w_addr, n, out_addr)
+    tail = head + ntiles * N3_TILE
+    steps = ([(0, head)] if head else []) + [(q, min(q + 16, n)) for q in range(tail, n, 16)]
+    return steps, [(head + g * N3_TILE, head + (g + 1) * N3_TILE) for g in range(ntiles)]
+
+
+def narrow3_plan(w_addr: int, n: int, out_addr: int = 0) -> dict:
+    """The launch plan of :func:`uniform3_utf16_to_utf8` on the current
+    CUDA device for ``n`` units at ``w_addr`` into ``out_addr`` (0: an
+    address on the 16-byte grid, as a fresh buffer's). Keys: grid,
+    threads, blocks_per_sm, tile_units, stages, smem_bytes, head,
+    ntiles."""
+    plan = (ctypes.c_longlong * 8)()
+    rc = _build.lib().narrow3_plan(int(w_addr), int(n), int(out_addr), plan)
+    if rc != 0:
+        raise RuntimeError(f"narrow3_plan: CUDA error {rc}")
+    return dict(zip(("grid", "threads", "blocks_per_sm", "tile_units", "stages",
+                     "smem_bytes", "head", "ntiles"), plan))
 
 
 ascii_narrow_utf8 = _wrapper("ascii_narrow_utf8", ascii_narrow_utf8_ref,

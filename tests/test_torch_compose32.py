@@ -22,7 +22,7 @@ from simdutf_tpu.ops import utf8 as jo8
 from simdutf_tpu_torch.kernels import compose32 as tc32
 from simdutf_tpu_torch.kernels import validate as tv
 
-T = jb32.TILE_B  # 8192-byte butterfly tiles (the port's own are 4096)
+T = jb32.TILE_B  # 8192-byte butterfly tiles (the port's own are 16384)
 _jgeneral = jax.jit(jo8._to_utf32_general)
 
 
@@ -127,3 +127,86 @@ def test_compose_matches_butterfly32_on_valid_input(name):
     assert not bool(err_any) and not bool(got_err)
     assert int(got_total) == int(total) == len(data.decode())
     assert np.array_equal(out.numpy().view(np.uint32), np.asarray(want))
+
+
+# -- the look-back aggregates of the one-launch kernel -----------------------
+#
+# csrc/compose32.cu publishes one (words, least event key, words before it)
+# triple a tile and folds its predecessors' with the look-back's combine;
+# the fold of the plain per-tile triples must give the compose result's
+# total, first error and err_len, and the JAX package's first error.
+
+TT = tc32.TILE  # 16 KiB look-back tiles
+NO_EVENT = (2**31 - 1) << 8
+
+
+def _combine(a, b):
+    """The look-back's combine of two adjacent runs, ``a`` the earlier."""
+    return (a[0] + b[0], min(a[1], b[1]), a[2] if a[1] < b[1] else a[0] + b[2])
+
+
+def _dense(size: int, seed: int) -> bytes:
+    """Whitespace-free mixed text of ``size`` bytes (cut at a character
+    start, padded with 'x')."""
+    alphabet = ["x", "é", "Ж", "東", "\U0001f642"]
+    rng = np.random.default_rng(seed)
+    d = "".join(alphabet[i] for i in rng.integers(0, 5, size)).encode()[:size]
+    d = d.decode("utf-8", "ignore").encode()
+    return d + b"x" * (size - len(d))
+
+
+_DENSE = _dense(4 * TT + 777, 3)
+LOOKBACK_CASES = {
+    "valid-many-tiles": _DENSE,
+    "valid-one-tile": _dense(TT, 6),
+    "valid-tile+1": _dense(TT + 1, 4),
+    "ff@0": _put(_DENSE, 0, b"\xff"),
+    "orphan@0": b"\x80" + _DENSE[1:],
+    "orphan@tile": _put(_dense(3 * TT, 5), TT, b"\x80"),
+    "ff@tile-1": _put(_DENSE, TT - 1, b"\xff"),
+    "overlong@tile-1": _put(_DENSE, TT - 1, b"\xc0\xaf"),
+    "surrogate@tile-2": _put(_DENSE, TT - 2, b"\xed\xa0\x80"),
+    "too-large@2tile-1": _put(_DENSE, 2 * TT - 1, b"\xf4\x90\x80\x80"),
+    "cut3@3tile-1": _put(_DENSE, 3 * TT - 1, b"\xe6\x9d\x41"),
+    "err@len-1": _DENSE[:-1] + b"\xc3",
+    "lead4-cut@len": _DENSE[:2 * TT + 5] + "\U0001f642".encode()[:3],
+    "lead4@len-1": _DENSE[:TT - 1] + b"\xf0",
+    "two-errors": _put(_put(_DENSE, 3 * TT + 9, b"\xff"), TT + 3, b"\xf8"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LOOKBACK_CASES))
+def test_tile_triples_combine_to_the_first_error(name):
+    data = LOOKBACK_CASES[name]
+    n = len(data) + 5
+    buf = np.zeros(n, np.uint8)
+    buf[: len(data)] = np.frombuffer(data, np.uint8)
+    x = torch.from_numpy(buf)
+    count, key, before = tc32.tile_aggregates_ref(x, len(data))
+    assert count.numel() == -(-len(data) // TT)
+    acc = (0, NO_EVENT, 0)
+    for t in zip(count.tolist(), key.tolist(), before.tolist()):
+        acc = _combine(acc, t)
+    total, key, before = acc
+    _, want_total, err_any, err_pos, err_code, err_len = tc32.to_utf32_compose_ref(x, len(data))
+    assert total == int(want_total) == int(tv.utf8_count(x, len(data)))
+    assert (key >> 8, key & 0xFF) == (int(err_pos), int(err_code))
+    assert bool(err_any) == (key != NO_EVENT) == ("valid" not in name)
+    assert (before if key != NO_EVENT else 0) == int(err_len)
+    code, pos = jo8.validate_with_errors(jnp.asarray(buf), len(data))
+    assert (int(pos) if int(code) else 2**31 - 1) == key >> 8
+    assert int(code) == key & 0xFF
+
+
+def test_tile_aggregates_on_the_cpu_are_the_plain_ones():
+    x = torch.from_numpy(np.frombuffer(_DENSE, np.uint8).copy())
+    for got, want in zip(tc32._tile_aggregates(x, len(_DENSE)),
+                         tc32.tile_aggregates_ref(x, len(_DENSE))):
+        assert torch.equal(got, want)
+    assert tc32._tile_aggregates(x, 0)[0].numel() == 0
+
+
+@pytest.mark.parametrize("name", ["valid-many-tiles", "ff@tile-1", "lead4-cut@len"])
+def test_compose_matches_scatter_engine_across_lookback_tiles(name):
+    """The compose contract on buffers of several 16 KiB tiles."""
+    _compare(LOOKBACK_CASES[name], garbage=True)

@@ -333,7 +333,8 @@ def test_latin1_to_utf8_compose_matches_plain_version(cuda, n):
 def test_compose_wrappers_make_no_host_sync(cuda):
     """Every compose and compaction wrapper runs without a device-to-host
     read: count pass, tile_glue and emit pass of the two-pass ones, the
-    status reset and the one launch of compose16 and b64_compact."""
+    status reset and the one launch of compose16, compose32 and
+    b64_compact."""
     data = ("ab é 東 \U0001f642 " * 5000).encode()
     x = torch.from_numpy(np.frombuffer(data + b"\xff", np.uint8).copy()).to(cuda)
     text = data.decode()
@@ -927,14 +928,13 @@ def _mixed(size: int) -> bytes:
     return d + b"a" * (size - len(d))
 
 
-def _compose16_cases():
+def _compose16_cases(T: int = T16):
     """(case, bytes): errors, invalid bytes and 4-byte sequences across
-    the tile edges and at a tile's first and last three bytes; cut
-    sequences at the length; many tiles."""
-    base = _mixed(4 * T16 + 999)
+    the edges of tiles of ``T`` bytes and at a tile's first and last three
+    bytes; cut sequences at the length; many tiles."""
+    base = _mixed(4 * T + 999)
     out = [("len1", b"a"), ("len1-lead4", b"\xf0"), ("mixed", base)]
-    edges = (0, 1, 2, T16 - 3, T16 - 2, T16 - 1, T16, T16 + 1, T16 + 2,
-             2 * T16 - 1, 3 * T16 + 2)
+    edges = (0, 1, 2, T - 3, T - 2, T - 1, T, T + 1, T + 2, 2 * T - 1, 3 * T + 2)
     for pos in edges:
         for bad in (b"\xff", b"\x80", b"\xc0\xaf", b"\xe0\x80\x80", b"\xed\xa0\x80",
                     b"\xf4\x90\x80\x80", b"\xf0\x9f"):
@@ -944,8 +944,8 @@ def _compose16_cases():
         d = bytearray(b"a" * len(base))
         d[pos:pos + 4] = "\U0001f642".encode()  # a valid 4-byte sequence
         out.append((f"astral@{pos}", bytes(d)))
-    out.append(("orphan-after-f8@edge", b"a" * (T16 - 2) + b"\xf8\x80\x80" + b"a" * 50))
-    out.append(("lead4@len-1", base[:T16 - 1] + b"\xf0"))
+    out.append(("orphan-after-f8@edge", b"a" * (T - 2) + b"\xf8\x80\x80" + b"a" * 50))
+    out.append(("lead4@len-1", base[:T - 1] + b"\xf0"))
     return out
 
 
@@ -982,12 +982,12 @@ def test_compose16_many_tiles_and_zero_tail(cuda):
     torch.cuda.synchronize()
 
 
-def _seq_tiles(seqs: list, off) -> np.ndarray:
-    """One compose16 tile of 'a' per sequence, the sequence at byte
+def _seq_tiles(seqs: list, off, T: int = T16) -> np.ndarray:
+    """One tile of ``T`` bytes of 'a' per sequence, the sequence at byte
     ``off`` of it ("end": ending at the tile's last byte)."""
-    buf = np.full((len(seqs), T16), ord("a"), np.uint8)
+    buf = np.full((len(seqs), T), ord("a"), np.uint8)
     for i, s in enumerate(seqs):
-        o = T16 - len(s) if off == "end" else off
+        o = T - len(s) if off == "end" else off
         buf[i, o:o + len(s)] = np.frombuffer(s, np.uint8)
     return buf.reshape(-1)
 
@@ -1084,20 +1084,22 @@ def test_b64_compact_many_tiles_and_zero_tail(cuda):
 
 
 def test_single_pass_wrappers_launch_once(cuda):
-    """compose16 and b64_compact: one kernel of their own a call (the
-    status reset is a memset inside the entry point, no torch fill)."""
+    """compose16, compose32 and b64_compact: one kernel of their own a call
+    (the status reset is a memset inside the entry point, no torch fill)."""
     from simdutf_tpu_torch.kernels import _build
 
     data = _mixed(5 * T16)
     x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda)
     chars = torch.from_numpy(np.frombuffer(pyb64.b64encode(data), np.uint8).copy()).to(cuda)
-    kc.to_utf16_compose(x, x.numel(), False)
-    kc64.compact_codes(chars, chars.numel(), False, False)
+    calls = (lambda: kc.to_utf16_compose(x, x.numel(), False),
+             lambda: kc32.to_utf32_compose(x, x.numel()),
+             lambda: kc64.compact_codes(chars, chars.numel(), False, False))
+    for call in calls:
+        call()
     torch.cuda.synchronize()
     from torch.profiler import ProfilerActivity, profile
 
-    for call in (lambda: kc.to_utf16_compose(x, x.numel(), False),
-                 lambda: kc64.compact_codes(chars, chars.numel(), False, False)):
+    for call in calls:
         _build.reset_launches()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             call()
@@ -1107,3 +1109,155 @@ def test_single_pass_wrappers_launch_once(cuda):
                    and "emset" not in e.key and "emcpy" not in e.key]
         assert sum(_build.LAUNCHES.values()) == 1
         assert len(kernels) <= 1, kernels  # the profiler may miss it, never add one
+
+
+# -- compose32 (#36-#37) as one look-back launch -----------------------------
+
+T32 = kc32.TILE  # bytes per compose32 tile
+
+
+@pytest.mark.parametrize("case,data", _compose16_cases(T32),
+                         ids=[c for c, _ in _compose16_cases(T32)])
+def test_compose32_tile_edges_match_plain_version(cuda, case, data):
+    """Errors, invalid bytes and 4-byte sequences at compose32's tile
+    edges, cut sequences at the length, garbage past it; and views off the
+    16-byte grid (the window takes byte loads, the words' stores stay
+    aligned)."""
+    L = len(data)
+    n = L + 7  # garbage past the length
+    buf = np.random.default_rng(L).integers(0, 256, n).astype(np.uint8)
+    buf[:L] = np.frombuffer(data, np.uint8)
+    x = torch.from_numpy(buf).to(cuda)
+    for length in (L, n, 0) if case == "mixed" else (L,):
+        assert _same(kc32.to_utf32_compose(x, length), kc32.to_utf32_compose_ref(x, length))
+    for off in (1, 3, 8) if L > 8 else ():
+        v = x[off:]
+        assert _same(kc32.to_utf32_compose(v, L - off), kc32.to_utf32_compose_ref(v, L - off)), off
+    torch.cuda.synchronize()
+
+
+def test_compose32_many_tiles_and_zero_tail(cuda):
+    """Far more tiles than resident blocks (look-back depth, out-of-order
+    starts), valid and with an error near the end; each call right after
+    freeing a same-sized 0xFF buffer, so a zero the kernel failed to write
+    shows; and the 0-length call."""
+    L = 24 * 2**20
+    data = bytearray(_mixed(L))
+    bad = bytearray(data)
+    bad[L - 5000] = 0xFF
+    for d in (data, bad):
+        x = torch.from_numpy(np.frombuffer(bytes(d) + b"\0" * 4096, np.uint8).copy()).to(cuda)
+        for length in (L, L - 1):
+            junk = torch.full((x.numel(),), -1, dtype=torch.int32, device=cuda)
+            del junk
+            got = kc32.to_utf32_compose(x, length)
+            assert _same(got, kc32.to_utf32_compose_ref(x, length)), length
+    assert _same(kc32.to_utf32_compose(x, 0), kc32.to_utf32_compose_ref(x, 0))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("off", [0, T32 // 2 - 1, "end"])
+def test_compose32_fast_check_misses_no_event(cuda, off):
+    """Each compose32 tile's published key (the fast check passes a tile
+    with no event) and triple against the plain lattice's."""
+    seqs = _fast_check_sequences()
+    per_call = 1024
+    for i in range(0, len(seqs), per_call):
+        x = torch.from_numpy(_seq_tiles(seqs[i:i + per_call], off, T32)).to(cuda)
+        L = x.numel()
+        got = kc32._tile_aggregates(x, L)
+        want = kc32.tile_aggregates_ref(x, L)
+        assert torch.equal(got[1].cpu(), want[1].cpu()), i
+        assert _same(got, want), i
+    torch.cuda.synchronize()
+
+
+# -- #23 uniform3_utf16_to_utf8 on narrow3's tiles -------------------------------
+
+N3 = ktr.N3_TILE  # units a narrow3 tile
+
+
+def _u3_units(n: int, seed: int) -> np.ndarray:
+    """Native 3-byte-class units (0x800-0xFFFF, no surrogate)."""
+    v = np.random.default_rng(seed).integers(0x800, 0xF800, n).astype(np.uint16)
+    v[v >= 0xD800] += 0x800
+    return v
+
+
+def _narrow3_raw(units: np.ndarray, length: int, be: bool, in_off: int, out_off: int,
+                 cuda, pad: int = 32):
+    """``uniform3_utf16_to_utf8``'s entry point called on raw addresses:
+    the units (garbage past ``length``) stored ``in_off`` bytes into a
+    fresh card buffer, the output ``out_off`` bytes into one filled with
+    0xAB. Returns (the 3n output bytes, flag, the bytes around them, the
+    plan, the split of narrow3_split's twin on the same addresses, the
+    units as a fresh tensor on the card)."""
+    from simdutf_tpu_torch.kernels import _build
+
+    n = len(units)
+    stored = (units.byteswap() if be else units).view(np.uint8)
+    raw = np.random.default_rng(n + in_off).integers(0, 256, 2 * n + pad).astype(np.uint8)
+    raw[in_off: in_off + 2 * n] = stored
+    xb = torch.from_numpy(raw).to(cuda)
+    ob = torch.full((3 * n + pad,), 0xAB, dtype=torch.uint8, device=cuda)
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    w_addr, o_addr = xb.data_ptr() + in_off, ob.data_ptr() + out_off
+    plan = ktr.narrow3_plan(w_addr, n, o_addr)
+    _build.call("uniform3_utf16_to_utf8", w_addr, n, length, int(be), o_addr, flag.data_ptr())
+    torch.cuda.synchronize()
+    w = torch.from_numpy(stored.view(np.int16).copy()).to(cuda).view(torch.uint16)
+    around = torch.cat([ob[:out_off], ob[out_off + 3 * n:]])
+    return (ob[out_off: out_off + 3 * n], flag[0], around, plan,
+            ktr.narrow3_split(w_addr, n, o_addr), w)
+
+
+@pytest.mark.parametrize("be", [False, True])
+@pytest.mark.parametrize("n", [N3 - 1, N3, N3 + 1, 2 * N3 + 15, 3 * N3 + 17])
+def test_narrow3_every_alignment_matches_plain_version(cuda, be, n):
+    """Every byte offset 0-15 of input and output: the plan's split is its
+    Python twin's, the 3n bytes and the flag are the plain version's, and
+    nothing outside them is written. Lengths around whole tiles, the whole
+    buffer and a ragged length with garbage after it; an out-of-class unit
+    in the first tile's range."""
+    units = _u3_units(n, n)
+    for in_off in range(16):
+        for out_off in range(16):
+            length = n if (in_off + out_off) % 2 else n - 3
+            data = units.copy()
+            bad = (in_off * 16 + out_off) % 5 == 0
+            if bad:
+                data[(in_off * 257 + out_off) % (n - 3)] = 0xD800 if out_off % 2 else 0x7FF
+            out, flag, around, plan, split, w = _narrow3_raw(data, length, be, in_off,
+                                                             out_off, cuda)
+            where = (in_off, out_off, length)
+            assert (plan["head"], plan["ntiles"]) == split, where
+            want_out, want_flag = ktr.uniform3_utf16_to_utf8_ref(w, length, be)
+            assert torch.equal(out, want_out), where
+            assert int(flag) == int(want_flag) == int(bad), where
+            assert bool((around == 0xAB).all()), where
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("be", [False, True])
+def test_narrow3_many_tiles_and_zero_tail(cuda, be):
+    """Through the wrapper on an aligned buffer of more tiles than one wave
+    (the stages' barrier phases), the length mid-tile with tiles wholly
+    past it, after freeing a same-sized 0xFF buffer; an out-of-class unit
+    in a late tile flags."""
+    n = 5 * 2**20 + 3
+    units = _u3_units(n, 7)
+    length = n // 2 + 5
+    for L, bad in ((length, None), (length, length - 1), (n, n // 3)):
+        d = units.copy()
+        if bad is not None:
+            d[bad] = 0x7FF
+        x = torch.from_numpy((d.byteswap() if be else d).view(np.int16).copy()
+                             ).to(cuda).view(torch.uint16)
+        plan = ktr.narrow3_plan(x.data_ptr(), n)
+        assert plan["ntiles"] == n // N3 and plan["ntiles"] > plan["grid"] * plan["stages"]
+        junk = torch.full((3 * n,), -1, dtype=torch.int8, device=cuda)
+        del junk
+        got = ktr.uniform3_utf16_to_utf8(x, L, be)
+        assert _same(got, ktr.uniform3_utf16_to_utf8_ref(x, L, be)), (L, bad)
+        assert int(got[1]) == (bad is not None)
+    torch.cuda.synchronize()
