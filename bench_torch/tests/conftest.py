@@ -1,0 +1,11 @@
+"""The benchmark's own tests, on the CPU at small sizes:
+
+    python -m pytest bench_torch/tests -q
+"""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
