@@ -149,12 +149,13 @@ import time
 MIB = 1 << 20
 CORPUS_BYTES = 64 * MIB - 4096  # bench.py's flagship size (bucket = 64 MiB)
 SEED = 20261016
-PASSES = ("census_utf8", "utf8_first_event", "utf8_count",
-          "utf8_to_utf16_compose")
+#: the kernels of each path, named by their C entry point; a kernel that
+#: launches more than one is named by its key in ENTRIES
+PASSES = ("census_utf8", "utf8_first_event", "utf8_count", "compose16")
 PASSES16 = ("census_utf16", "utf16_first_bad", "utf16_count",
             "utf16_to_utf8_compose")
-PASSES64 = ("b64_compact", "b64_pack", "b64_encode")
-PASSES32 = ("utf32_first_bad", "utf32_count", "utf8_to_utf32_compose",
+PASSES64 = ("b64_compact8", "b64_pack", "b64_encode")
+PASSES32 = ("utf32_first_bad", "utf32_count", "compose32",
             "utf32_to_utf8_compose")
 PASSESX = ("utf16_to_utf32_compose", "utf32_to_utf16_compose",
            "latin1_to_utf8_compose")
@@ -180,6 +181,12 @@ PASSEST32 = tuple(k for k, _ in FIXED8TO32 + FIXED32TO8 + FIXED16TO32 + FIXED32T
 PASSESP = ("utf8_swar_first_bad_word", "ascii_swar_first_bad_word",
            "utf16_swar_first_bad_word", "clean_decode", "row_compact",
            "lane_shapecast_probe")
+#: the C entry points of each kernel that launches more than one
+ENTRIES = {"utf16_to_utf8_compose": ("compose8_count", "compose8_emit"),
+           "utf32_to_utf8_compose": ("composex_count", "composex_emit"),
+           "utf16_to_utf32_compose": ("u16_to_u32_count", "u16_to_u32_emit"),
+           "utf32_to_utf16_compose": ("u32_to_u16_count", "u32_to_u16_emit"),
+           "latin1_to_utf8_compose": ("latin1_utf8_count", "latin1_utf8_emit")}
 KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
     "census_utf8": ("simdutf_tpu_torch/csrc/census.cu",
                     "simdutf_tpu/kernels/census.py:204", []),
@@ -188,9 +195,9 @@ KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
                          ["simdutf_tpu/kernels/validate.py:438"]),
     "utf8_count": ("simdutf_tpu_torch/csrc/validate.cu",
                    "simdutf_tpu/kernels/validate.py:471", []),
-    "utf8_to_utf16_compose": ("simdutf_tpu_torch/csrc/compose16.cu",
-                              "simdutf_tpu/kernels/butterfly.py:554",
-                              ["simdutf_tpu/kernels/butterfly.py:691"]),
+    "compose16": ("simdutf_tpu_torch/csrc/compose16.cu",
+                  "simdutf_tpu/kernels/butterfly.py:554",
+                  ["simdutf_tpu/kernels/butterfly.py:691"]),
     "census_utf16": ("simdutf_tpu_torch/csrc/census16.cu",
                      "simdutf_tpu/kernels/census.py:354", []),
     "utf16_first_bad": ("simdutf_tpu_torch/csrc/utf16.cu",
@@ -200,10 +207,10 @@ KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
     "utf16_to_utf8_compose": ("simdutf_tpu_torch/csrc/compose8.cu",
                               "simdutf_tpu/kernels/butterfly16.py:221",
                               ["simdutf_tpu/kernels/butterfly16.py:335"]),
-    "b64_compact": ("simdutf_tpu_torch/csrc/base64.cu",
-                    "simdutf_tpu/kernels/butterfly64.py:160",
-                    ["simdutf_tpu/kernels/butterfly64.py:222",
-                     "simdutf_tpu/kernels/butterfly16.py:335"]),
+    "b64_compact8": ("simdutf_tpu_torch/csrc/base64.cu",
+                     "simdutf_tpu/kernels/butterfly64.py:160",
+                     ["simdutf_tpu/kernels/butterfly64.py:222",
+                      "simdutf_tpu/kernels/butterfly16.py:335"]),
     "b64_pack": ("simdutf_tpu_torch/csrc/base64.cu",
                  "simdutf_tpu/kernels/base64_kernel.py:189",
                  ["simdutf_tpu/kernels/base64_kernel.py:308"]),
@@ -213,9 +220,9 @@ KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
                         "simdutf_tpu/kernels/validate.py:551", []),
     "utf32_count": ("simdutf_tpu_torch/csrc/utf32.cu",
                     "simdutf_tpu/kernels/validate.py:570", []),
-    "utf8_to_utf32_compose": ("simdutf_tpu_torch/csrc/compose32.cu",
-                              "simdutf_tpu/kernels/butterfly32.py:187",
-                              ["simdutf_tpu/kernels/butterfly32.py:267"]),
+    "compose32": ("simdutf_tpu_torch/csrc/compose32.cu",
+                  "simdutf_tpu/kernels/butterfly32.py:187",
+                  ["simdutf_tpu/kernels/butterfly32.py:267"]),
     "utf32_to_utf8_compose": ("simdutf_tpu_torch/csrc/composex.cu",
                               "simdutf_tpu/kernels/butterflyx.py:122",
                               ["simdutf_tpu/kernels/butterfly16.py:335"]),
@@ -292,9 +299,9 @@ KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
 #: tile ring of the three tiled fixed-rate kernels
 _UTF8_LOOKBACK = ["simdutf_tpu_torch/csrc/utf8_tile.cuh", "simdutf_tpu_torch/csrc/lookback.cuh",
                   "simdutf_tpu_torch/csrc/utf8.cuh"]
-HEADERS = {"utf8_to_utf16_compose": _UTF8_LOOKBACK,
-           "utf8_to_utf32_compose": _UTF8_LOOKBACK,
-           "b64_compact": ["simdutf_tpu_torch/csrc/lookback.cuh"],
+HEADERS = {"compose16": _UTF8_LOOKBACK,
+           "compose32": _UTF8_LOOKBACK,
+           "b64_compact8": ["simdutf_tpu_torch/csrc/lookback.cuh"],
            "uniform3_utf16_to_utf8": ["simdutf_tpu_torch/csrc/bulk.cuh"],
            "latin1_widen_utf32": ["simdutf_tpu_torch/csrc/bulk.cuh"],
            "bmp_widen_utf32": ["simdutf_tpu_torch/csrc/bulk.cuh"]}
@@ -314,6 +321,26 @@ class SmokeFailure(Exception):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def counted(call):
+    """(``call()``, the port's launches during it by C entry point), from
+    the port's own counter (``simdutf_tpu_torch.trace``), which counts
+    while a profiler records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from simdutf_tpu_torch import trace
+
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = call()
+    return got, trace.snapshot()["launches"]
+
+
+def kernel_launches(launches: dict, k: str) -> int:
+    """Launches of kernel ``k`` (its C entry points, ENTRIES) in
+    ``launches``, a count by C entry point."""
+    return sum(launches.get(e, 0) for e in ENTRIES.get(k, (k,)))
 
 
 def log(*a) -> None:
@@ -634,7 +661,7 @@ def parity_phase(device, big: int = CORPUS_BYTES) -> dict:
             "utf8_count": (
                 tuple(kv._count_call(x, L, w) for w in kv._MODES),
                 tuple(kv.count_ref(x, L, w) for w in kv._MODES)),
-            "utf8_to_utf16_compose": (
+            "compose16": (
                 kc.to_utf16_compose(x, L, False) + kc.to_utf16_compose(x, L, True),
                 kc.to_utf16_compose_ref(x, L, False)
                 + kc.to_utf16_compose_ref(x, L, True)),
@@ -735,18 +762,14 @@ def slice_phase(device, big: int = CORPUS_BYTES) -> dict:
 
     from simdutf_tpu_torch import api as su
     from simdutf_tpu_torch.errors import error_code as ec
-    from simdutf_tpu_torch.kernels import _build
 
     su.use_device(device)
     data = bench.mixed_corpus(big)
     want = data.decode("utf-8").encode("utf-16-le")
 
-    _build.reset_launches()
-    res, out = su.convert_utf8_to_utf16le_with_errors(data)
-    val = su.validate_utf8_with_errors(data)
-    n16 = su.utf16_length_from_utf8(data)
-    ncp = su.count_utf8(data)
-    launches = dict(_build.LAUNCHES)
+    (res, out, val, n16, ncp), launches = counted(lambda: (
+        *su.convert_utf8_to_utf16le_with_errors(data), su.validate_utf8_with_errors(data),
+        su.utf16_length_from_utf8(data), su.count_utf8(data)))
 
     check(res.error == ec.SUCCESS and res.count == len(want) // 2,
           f"transcode result {res}")
@@ -755,7 +778,7 @@ def slice_phase(device, big: int = CORPUS_BYTES) -> dict:
     check(n16 == len(want) // 2, f"utf16_length {n16} != {len(want) // 2}")
     check(ncp == len(data.decode("utf-8")), f"count_utf8 {ncp}")
     for k in PASSES:
-        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the main path")
+        check(kernel_launches(launches, k) > 0, f"kernel {k} did not launch on the main path")
     log(f"slice: {len(data)} B mixed corpus, {len(want) // 2} units, equal "
         f"to codecs; launches {launches}")
 
@@ -802,7 +825,6 @@ def slice16_phase(device, big: int = CORPUS_BYTES) -> dict:
 
     from simdutf_tpu_torch import api as su
     from simdutf_tpu_torch.errors import error_code as ec
-    from simdutf_tpu_torch.kernels import _build
 
     su.use_device(device)
     data = bench.mixed_corpus(big)
@@ -810,12 +832,9 @@ def slice16_phase(device, big: int = CORPUS_BYTES) -> dict:
     le, be = text.encode("utf-16-le"), text.encode("utf-16-be")
     units = len(le) // 2
 
-    _build.reset_launches()
-    res, out = su.convert_utf16le_to_utf8_with_errors(le)
-    val = su.validate_utf16le_with_errors(le)
-    n8 = su.utf8_length_from_utf16le(le)
-    ncp = su.count_utf16le(le)
-    launches = dict(_build.LAUNCHES)
+    (res, out, val, n8, ncp), launches = counted(lambda: (
+        *su.convert_utf16le_to_utf8_with_errors(le), su.validate_utf16le_with_errors(le),
+        su.utf8_length_from_utf16le(le), su.count_utf16le(le)))
 
     check(res.is_ok and res.count == len(data), f"utf16le transcode {res}")
     check(out == data, "utf16le transcode differs from the corpus bytes")
@@ -823,7 +842,7 @@ def slice16_phase(device, big: int = CORPUS_BYTES) -> dict:
     check(n8 == len(data), f"utf8_length_from_utf16le {n8} != {len(data)}")
     check(ncp == len(text), f"count_utf16le {ncp} != {len(text)}")
     for k in PASSES16:
-        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the main path")
+        check(kernel_launches(launches, k) > 0, f"kernel {k} did not launch on the main path")
     log(f"slice16: {units} units ({len(le)} B UTF-16LE) -> {len(data)} B, "
         f"equal to the corpus; launches {launches}")
 
@@ -908,9 +927,9 @@ def parity64_phase(device, big: int = CORPUS_BYTES) -> dict:
             for url, both in MODES64:
                 what = f"{name} (n={n}, length={L}, wide={wide}, url={url}, both={both})"
                 got = kc64.compact_codes(x, L, url, both)
-                record("b64_compact", what, got, kc64.compact_codes_ref(x, L, url, both))
+                record("b64_compact8", what, got, kc64.compact_codes_ref(x, L, url, both))
                 record("b64_pack", what, kb.pack(got[0]), kb.pack_ref(got[0]))
-                record("b64_compact", what, ob.decode_bulk_routed(x, L, url, both),
+                record("b64_compact8", what, ob.decode_bulk_routed(x, L, url, both),
                        ob.decode_bulk(x, L, url, both))
     # pack on arbitrary bytes, encode on the raw corpus and on ragged sizes
     rng = np.random.default_rng(SEED + 64)
@@ -940,18 +959,14 @@ def slice64_phase(device, big: int = CORPUS_BYTES) -> dict:
 
     from simdutf_tpu_torch import api as su
     from simdutf_tpu_torch.errors import error_code as ec
-    from simdutf_tpu_torch.kernels import _build
 
     su.use_device(device)
     raw, mime = mime_corpus(big)
     mime16 = np.frombuffer(mime, np.uint8).astype(np.uint16)
 
-    _build.reset_launches()
-    res, out = su.base64_to_binary(mime)
-    res16, out16 = su.base64_to_binary(mime16)
-    enc = su.binary_to_base64(raw)
-    enc_url = su.binary_to_base64(raw, su.base64_url)
-    launches = dict(_build.LAUNCHES)
+    (res, out, res16, out16, enc, enc_url), launches = counted(lambda: (
+        *su.base64_to_binary(mime), *su.base64_to_binary(mime16),
+        su.binary_to_base64(raw), su.binary_to_base64(raw, su.base64_url)))
 
     check(res.error == ec.SUCCESS and res.count == len(raw), f"decode result {res}")
     check(out == raw, "decoded MIME corpus differs from the raw bytes")
@@ -959,7 +974,7 @@ def slice64_phase(device, big: int = CORPUS_BYTES) -> dict:
     check(enc == base64.b64encode(raw), "encode differs from base64.b64encode")
     check(enc_url == base64.urlsafe_b64encode(raw), "url encode differs")
     for k in PASSES64:
-        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the main path")
+        check(kernel_launches(launches, k) > 0, f"kernel {k} did not launch on the main path")
     log(f"slice64: {len(mime)} chars of MIME base64 -> {len(raw)} B, uint8 and "
         f"char16, equal to the raw bytes; encode equal to base64.b64encode "
         f"(default and url); launches {launches}")
@@ -1074,7 +1089,7 @@ def parity32_phase(device, big: int = CORPUS_BYTES) -> dict:
         if garbage:
             buf[L:] = np.random.default_rng(L).integers(0, 256, n - L)
         x = torch.from_numpy(buf).to(device)
-        record("utf8_to_utf32_compose", f"{name} (n={n}, length={L})",
+        record("compose32", f"{name} (n={n}, length={L})",
                kc32.to_utf32_compose(x, L), kc32.to_utf32_compose_ref(x, L))
     log(f"parity32: {len(cases)} word buffers and {len(cases8)} UTF-8 buffers, "
         f"every UTF-32 kernel bit-identical to its plain version")
@@ -1093,7 +1108,6 @@ def slice32_phase(device, big: int = CORPUS_BYTES) -> dict:
     from simdutf_tpu_torch import TorchImplementation
     from simdutf_tpu_torch import api as su
     from simdutf_tpu_torch.errors import error_code as ec
-    from simdutf_tpu_torch.kernels import _build
 
     su.use_device(device)
     data = bench.mixed_corpus(big)
@@ -1101,13 +1115,10 @@ def slice32_phase(device, big: int = CORPUS_BYTES) -> dict:
     w32 = text.encode("utf-32-le")
     words = len(w32) // 4
 
-    _build.reset_launches()
-    res, out = su.convert_utf8_to_utf32_with_errors(data)
-    val = su.validate_utf32_with_errors(w32)
-    n8 = su.utf8_length_from_utf32(w32)
-    n16 = su.utf16_length_from_utf32(w32)
-    res8, out8 = su.convert_utf32_to_utf8_with_errors(w32)
-    launches = dict(_build.LAUNCHES)
+    (res, out, val, n8, n16, res8, out8), launches = counted(lambda: (
+        *su.convert_utf8_to_utf32_with_errors(data), su.validate_utf32_with_errors(w32),
+        su.utf8_length_from_utf32(w32), su.utf16_length_from_utf32(w32),
+        *su.convert_utf32_to_utf8_with_errors(w32)))
 
     check(res.is_ok and res.count == words, f"utf8 -> utf32 result {res}")
     check(out == w32, "utf8 -> utf32 output differs from codecs")
@@ -1117,7 +1128,7 @@ def slice32_phase(device, big: int = CORPUS_BYTES) -> dict:
     check(res8.is_ok and res8.count == len(data), f"utf32 -> utf8 result {res8}")
     check(out8 == data, "utf32 -> utf8 output differs from the corpus bytes")
     for k in PASSES32:
-        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the main path")
+        check(kernel_launches(launches, k) > 0, f"kernel {k} did not launch on the main path")
     log(f"slice32: {len(data)} B -> {words} words -> {len(data)} B, equal to "
         f"codecs utf-32-le; launches {launches}")
     check(su.convert_valid_utf8_to_utf32(data) == w32
@@ -1263,7 +1274,6 @@ def slicex_phase(device, big: int = CORPUS_BYTES) -> dict:
 
     from simdutf_tpu_torch import api as su
     from simdutf_tpu_torch.errors import error_code as ec
-    from simdutf_tpu_torch.kernels import _build
 
     su.use_device(device)
     text = bench.mixed_corpus(big).decode("utf-8")
@@ -1272,11 +1282,9 @@ def slicex_phase(device, big: int = CORPUS_BYTES) -> dict:
     ltext = lat.decode("latin-1")
     l8, l16, l32 = ltext.encode(), ltext.encode("utf-16-le"), ltext.encode("utf-32-le")
 
-    _build.reset_launches()
-    res32, out32 = su.convert_utf16le_to_utf32_with_errors(le)
-    res16, out16 = su.convert_utf32_to_utf16le_with_errors(w32)
-    out8 = su.convert_latin1_to_utf8(lat)
-    launches = dict(_build.LAUNCHES)
+    (res32, out32, res16, out16, out8), launches = counted(lambda: (
+        *su.convert_utf16le_to_utf32_with_errors(le),
+        *su.convert_utf32_to_utf16le_with_errors(w32), su.convert_latin1_to_utf8(lat)))
 
     check(res32.is_ok and res32.count == len(w32) // 4 and out32 == w32,
           f"utf16le -> utf32 {res32} differs from codecs")
@@ -1284,7 +1292,7 @@ def slicex_phase(device, big: int = CORPUS_BYTES) -> dict:
           f"utf32 -> utf16le {res16} differs from codecs")
     check(out8 == l8, "latin1 -> utf8 differs from codecs")
     for k in PASSESX:
-        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the main path")
+        check(kernel_launches(launches, k) > 0, f"kernel {k} did not launch on the main path")
     log(f"slicex: {len(le) // 2} units -> {len(w32) // 4} words -> {len(le) // 2} "
         f"units, {len(lat)} Latin-1 B -> {len(l8)} B, equal to codecs; "
         f"launches {launches}")
@@ -1393,7 +1401,7 @@ def parityu_phase(device, big: int = CORPUS_BYTES) -> dict:
         errs[k] = max(errs[k], e)
         check(e == 0, f"parity {k} on {what}: max abs err {e}")
 
-    errs = dict.fromkeys(PASSESU + ("utf8_to_utf16_compose", "utf16_to_utf8_compose"), 0)
+    errs = dict.fromkeys(PASSESU + ("compose16", "utf16_to_utf8_compose"), 0)
     cases8 = parity_cases(big)
     high_end = bytearray(b"a" * big)
     high_end[-1] = 0xC3
@@ -1413,7 +1421,7 @@ def parityu_phase(device, big: int = CORPUS_BYTES) -> dict:
         record("detect_encodings", what, kdet.detect_fused(x, L), kdet.detect_fused_ref(x, L))
         if not name.startswith("ascii-64MiB"):
             for be in (False, True):
-                record("utf8_to_utf16_compose", f"{what}, unclamped, be={be}",
+                record("compose16", f"{what}, unclamped, be={be}",
                        kc.to_utf16_compose(x, L, be, clamp=False),
                        kc.to_utf16_compose_ref(x, L, be, clamp=False))
     cases16 = parity16_cases(big)
@@ -1460,7 +1468,6 @@ def sliceu_phase(device, big: int = CORPUS_BYTES) -> dict:
     from simdutf_tpu_torch import api as su
     from simdutf_tpu_torch.encodings import encoding_type as et
     from simdutf_tpu_torch.errors import error_code as ec
-    from simdutf_tpu_torch.kernels import _build
 
     su.use_device(device)
     data = bench.mixed_corpus(big)
@@ -1501,21 +1508,18 @@ def sliceu_phase(device, big: int = CORPUS_BYTES) -> dict:
     def detected(d: bytes) -> int:
         return sum(int(flag[c]) for c in codecs if codec_ok(d, c))
 
-    _build.reset_launches()
-    asc = su.validate_ascii_with_errors(data)
-    wf = su.to_well_formed_utf16le(bad.tobytes())
-    det = su.detect_encodings(data)
-    v16 = su.convert_valid_utf8_to_utf16le(data)
-    v8 = su.convert_valid_utf16le_to_utf8(le)
-    launches = dict(_build.LAUNCHES)
+    (asc, wf, det, v16, v8), launches = counted(lambda: (
+        su.validate_ascii_with_errors(data), su.to_well_formed_utf16le(bad.tobytes()),
+        su.detect_encodings(data), su.convert_valid_utf8_to_utf16le(data),
+        su.convert_valid_utf16le_to_utf8(le)))
 
     check((asc.error, asc.count) == (ec.TOO_LARGE, first_high),
           f"validate_ascii_with_errors {asc}, first byte >= 0x80 at {first_high}")
     check(wf == want_wf.tobytes(), "to_well_formed_utf16le differs from numpy")
     check(det == detected(data), f"detect_encodings of the corpus: {det}")
     check(v16 == le and v8 == data, "valid-only converters differ from codecs")
-    for k in PASSESU + ("utf8_to_utf16_compose", "utf16_to_utf8_compose"):
-        check(launches.get(k, 0) > 0, f"kernel {k} did not launch on the main path")
+    for k in PASSESU + ("compose16", "utf16_to_utf8_compose"):
+        check(kernel_launches(launches, k) > 0, f"kernel {k} did not launch on the main path")
     log(f"sliceu: {len(data)} B corpus: validate_ascii ({asc.error.name}, {asc.count}); "
         f"to_well_formed of {len(bad)} units with 3 lone surrogates = numpy; "
         f"detect_encodings {det}; valid-only converters = codecs; launches {launches}")
@@ -1671,15 +1675,12 @@ def slicetr_phase(device, big: int = CORPUS_BYTES) -> dict:
     exactly the ASCII widen kernel. Returns the launches of each fixed-rate kernel
     summed over these calls."""
     from simdutf_tpu_torch import api as su
-    from simdutf_tpu_torch.kernels import _build
 
     su.use_device(device)
     total = dict.fromkeys(PASSEST, 0)
 
     def launched(call, want: dict):
-        _build.reset_launches()
-        got = call()
-        launches = dict(_build.LAUNCHES)
+        got, launches = counted(call)
         check(launches == want, f"launches {launches}, want {want}")
         for k in PASSEST:
             total[k] += launches.get(k, 0)
@@ -1828,15 +1829,12 @@ def slicetr32_phase(device, big: int = CORPUS_BYTES) -> dict:
     UTF-32 exactly the Latin-1 widen. Returns the launches of each kernel
     summed over these calls."""
     from simdutf_tpu_torch import api as su
-    from simdutf_tpu_torch.kernels import _build
 
     su.use_device(device)
     total = dict.fromkeys(PASSEST32, 0)
 
     def launched(call, want: dict):
-        _build.reset_launches()
-        got = call()
-        launches = dict(_build.LAUNCHES)
+        got, launches = counted(call)
         check(launches == want, f"launches {launches}, want {want}")
         for k in PASSEST32:
             total[k] += launches.get(k, 0)
@@ -2032,7 +2030,6 @@ def slicep_phase(device, big: int = CORPUS_BYTES) -> dict:
     from simdutf_tpu_torch import api as su
     from simdutf_tpu_torch.errors import error_code as ec
     from simdutf_tpu_torch.impl import TorchImplementation
-    from simdutf_tpu_torch.kernels import _build
     from simdutf_tpu_torch.kernels.impl import TorchPallasImplementation
 
     tier = su.use_device(TorchPallasImplementation(device))
@@ -2040,9 +2037,7 @@ def slicep_phase(device, big: int = CORPUS_BYTES) -> dict:
     total = dict.fromkeys(PASSESP, 0)
 
     def launched(call, want):
-        _build.reset_launches()
-        got = call()
-        launches = dict(_build.LAUNCHES)
+        got, launches = counted(call)
         check(want is None or launches == want, f"launches {launches}, want {want}")
         for k in PASSESP:
             total[k] += launches.get(k, 0)
@@ -2118,7 +2113,7 @@ def slicep_phase(device, big: int = CORPUS_BYTES) -> dict:
     (full, out), mime_launches = launched(lambda: su.base64_to_binary_details(mime), None)
     ref_full, ref_out = plain.base64_to_binary_details(np.frombuffer(mime, np.uint8))
     check(full == ref_full and full.is_ok and out == ref_out.tobytes() == raw
-          and mime_launches.get("b64_compact", 0) > 0,
+          and mime_launches.get("b64_compact8", 0) > 0,
           f"MIME base64 decode {full}, TorchImplementation {ref_full}, launches {mime_launches}")
     log(f"slicep: base64 of {len(raw)} B = base64.b64decode: clean ({len(clean)} chars) through "
         f"clean_decode alone, MIME ({len(mime)} chars) through the forgiving route "
@@ -2218,7 +2213,7 @@ def times_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict]:
                              lambda: kv.utf8_first_event_len_ref(x, L)),
         "utf8_count": (lambda: kv.utf8_count(x, L),
                        lambda: kv.count_ref(x, L, "count")),
-        "utf8_to_utf16_compose": (lambda: kc.to_utf16_compose(x, L, False),
+        "compose16": (lambda: kc.to_utf16_compose(x, L, False),
                                   lambda: kc.to_utf16_compose_ref(x, L, False)),
         "to_utf16 (ops.utf8, routed)": (lambda: o8.to_utf16(x, L, False),
                                         plain_to_utf16),
@@ -2241,7 +2236,7 @@ def times_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict]:
     # bytes each kernel must move: its input read once, its whole output
     # buffer written once
     moved = {"census_utf8": L, "utf8_first_event": L, "utf8_count": L,
-             "utf8_to_utf16_compose": L + 2 * x.numel(),
+             "compose16": L + 2 * x.numel(),
              "census_utf16": 2 * U, "utf16_first_bad": 2 * U,
              "utf16_count": 2 * U, "utf16_to_utf8_compose": 2 * U + 3 * w.numel()}
     return ms, moved
@@ -2280,7 +2275,7 @@ def times64_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict]:
     codes = kc64.compact_codes(x, L, False, False)[0]
     torch.cuda.synchronize()
     ms = _time_pairs({
-        "b64_compact": (lambda: kc64.compact_codes(x, L, False, False),
+        "b64_compact8": (lambda: kc64.compact_codes(x, L, False, False),
                         lambda: kc64.compact_codes_ref(x, L, False, False)),
         "b64_pack": (lambda: kb.pack(codes), lambda: kb.pack_ref(codes)),
         "decode (ops.base64_ops, routed)": (
@@ -2305,7 +2300,7 @@ def times64_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict]:
             f"{nbytes / statistics.median(host) / 1e6:.2f} GB/s in [{card}]")
     breakdown(lambda: ob.decode_bulk_routed(x, L, False, False),
               f"base64 decode (MIME, {L} chars)", card)
-    moved = {"b64_compact": L + x.numel(),
+    moved = {"b64_compact8": L + x.numel(),
              "b64_pack": codes.numel() + codes.numel() // 4 * 3,
              "b64_encode": r.numel() + r.numel() // 3 * 4}
     return ms, moved
@@ -2354,7 +2349,7 @@ def times32_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict]:
         "to_utf8 (ops.utf32, routed)": (lambda: o32.to_utf8(w, W), plain_to_utf8),
     }, 4 * W, card)
     ms.update(_time_pairs({
-        "utf8_to_utf32_compose": (lambda: kc32.to_utf32_compose(x, L),
+        "compose32": (lambda: kc32.to_utf32_compose(x, L),
                                   lambda: kc32.to_utf32_compose_ref(x, L)),
         "to_utf32 (ops.utf8, routed)": (lambda: o8.to_utf32(x, L), plain_to_utf32),
     }, L, card))
@@ -2362,7 +2357,7 @@ def times32_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict]:
     breakdown(lambda: o32.to_utf8(w, W),
               f"utf32 to_utf8 (mixed 64 MiB as UTF-32LE, {W} words)", card)
     moved = {"utf32_first_bad": 4 * W, "utf32_count": 4 * W,
-             "utf8_to_utf32_compose": L + 4 * x.numel(),
+             "compose32": L + 4 * x.numel(),
              "utf32_to_utf8_compose": 4 * W + 4 * w.numel()}
     return ms, moved
 
@@ -3134,7 +3129,7 @@ def main() -> int:
              (launches64, PASSES64), (launches32, PASSES32), (launchesx, PASSESX),
              (launchesu, PASSESU), (launchest, PASSEST), (launchest32, PASSEST32),
              (launchesp, PASSESP))
-    launches = {k: got[k] for got, path in paths for k in path}
+    launches = {k: kernel_launches(got, k) for got, path in paths for k in path}
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "also_replaces": KERNELS[k][2],

@@ -21,6 +21,7 @@ import torch
 
 from . import base64_host as bh
 from . import runtime
+from . import trace
 from . import trim_host as th
 from .encodings import check_bom, encoding_type
 from .errors import Result, error_code as ec
@@ -72,35 +73,54 @@ def _res(code, pos) -> Result:
     return Result(ec(int(code)), int(pos))
 
 
+def _scalars(*ts: torch.Tensor) -> list:
+    """The 0-d tensors ``ts`` as Python numbers, in one read."""
+    return trace.sync("impl.scalars", torch.Tensor.tolist, torch.stack(ts))
+
+
+def _int(t: torch.Tensor) -> int:
+    """The 0-d tensor ``t`` as a Python int."""
+    return trace.sync("impl.scalar", int, t)
+
+
+def _cpu(t: torch.Tensor) -> np.ndarray:
+    """The tensor ``t`` as a numpy array on the host."""
+    return trace.sync("impl.cut", torch.Tensor.cpu, t).numpy()
+
+
+@trace.spanned("simdutf.glue.result")
 def _cut(out: torch.Tensor, out_len: int) -> np.ndarray:
     """The first ``out_len`` uint16 units as a numpy array."""
-    return out[:out_len].view(torch.int16).cpu().numpy().view(np.uint16)
+    return _cpu(out[:out_len].view(torch.int16)).view(np.uint16)
 
 
+@trace.spanned("simdutf.glue.result")
 def _cut8(out: torch.Tensor, out_len: int) -> np.ndarray:
     """The first ``out_len`` bytes as a numpy array."""
-    return out[:out_len].cpu().numpy()
+    return _cpu(out[:out_len])
 
 
+@trace.spanned("simdutf.glue.result")
 def _cut32(out: torch.Tensor, out_len: int) -> np.ndarray:
     """The first ``out_len`` int32 words as a numpy uint32 array."""
-    return out[:out_len].cpu().numpy().view(np.uint32)
+    return _cpu(out[:out_len]).view(np.uint32)
 
 
 def _converted(code, pos, out, out_len, cut):
-    """(Result, output) of a validating conversion, after one sync."""
-    code, pos, out_len = torch.stack([code, pos, out_len]).tolist()
-    if code == 0:
+    """(Result, output) of a validating conversion: one read of the
+    scalars, then the output's."""
+    with trace.span("simdutf.glue.result"):
+        code, pos, out_len = _scalars(code, pos, out_len)
         # success count = code units written (error.h:36-38)
-        return Result(ec.SUCCESS, out_len), cut(out, out_len)
-    return Result(ec(code), pos), cut(out, out_len)
+        res = Result(ec.SUCCESS, out_len) if code == 0 else Result(ec(code), pos)
+    return res, cut(out, out_len)
 
 
 def _valid(out_total, cut) -> np.ndarray:
     """The output of a conversion that reports no error: ``(out, total)``
     cut to ``total``."""
     out, total = out_total
-    return cut(out, int(total))
+    return cut(out, _int(total))
 
 
 class TorchImplementation:
@@ -132,10 +152,11 @@ class TorchImplementation:
             raise ValueError(f"unsupported device {self.device}")
         self.description = f"{self.description} on {self.device}"
 
-    def _stage(self, arr: np.ndarray):
+    @trace.spanned("simdutf.glue.stage")
+    def _stage(self, arr: np.ndarray, multiple: int = 4):
         """np.uint8 bytes, np.uint16 units or np.uint32 words -> (padded
         tensor, length)."""
-        return to_device(*_pad(arr), self.device)
+        return to_device(*_pad(arr, multiple), self.device)
 
     # -- validation ----------------------------------------------------------
     def validate_ascii(self, b):
@@ -143,21 +164,21 @@ class TorchImplementation:
 
     def validate_ascii_with_errors(self, b):
         code, pos = o8.validate_ascii_with_errors(*self._stage(b))
-        return _res(*torch.stack([code, pos]).tolist())
+        return _res(*_scalars(code, pos))
 
     def validate_utf8(self, b):
         return self.validate_utf8_with_errors(b).is_ok
 
     def validate_utf8_with_errors(self, b):
         code, pos = o8.validate_with_errors(*self._stage(b))
-        return _res(*torch.stack([code, pos]).tolist())
+        return _res(*_scalars(code, pos))
 
     # -- counts / lengths ----------------------------------------------------
     def count_utf8(self, b):
-        return int(o8.count_code_points(*self._stage(b)))
+        return _int(o8.count_code_points(*self._stage(b)))
 
     def utf16_length_from_utf8(self, b):
-        return int(o8.utf16_length(*self._stage(b)))
+        return _int(o8.utf16_length(*self._stage(b)))
 
     def utf32_length_from_utf8(self, b):
         return self.count_utf8(b)
@@ -166,7 +187,7 @@ class TorchImplementation:
         return self.count_utf8(b)
 
     def utf8_length_from_latin1(self, b):
-        return int(kv.latin1_utf8_length(*self._stage(b)))
+        return _int(kv.latin1_utf8_length(*self._stage(b)))
 
     # -- conversions ---------------------------------------------------------
     def convert_utf8_to_utf16le_with_errors(self, b):
@@ -177,11 +198,11 @@ class TorchImplementation:
 
     def convert_valid_utf8_to_utf16le(self, b):
         out, total = o8.to_utf16_valid(*self._stage(b), False)
-        return _cut(out, int(total))
+        return _cut(out, _int(total))
 
     def convert_valid_utf8_to_utf16be(self, b):
         out, total = o8.to_utf16_valid(*self._stage(b), True)
-        return _cut(out, int(total))
+        return _cut(out, _int(total))
 
     # -- UTF-16 validation ---------------------------------------------------
     def validate_utf16le(self, w):
@@ -192,7 +213,7 @@ class TorchImplementation:
 
     def _validate16(self, w, big_endian: bool):
         code, pos = o16.validate_with_errors(*self._stage(w), big_endian)
-        return _res(*torch.stack([code, pos]).tolist())
+        return _res(*_scalars(code, pos))
 
     def validate_utf16le_with_errors(self, w):
         return self._validate16(w, False)
@@ -202,16 +223,16 @@ class TorchImplementation:
 
     # -- UTF-16 counts / lengths ---------------------------------------------
     def count_utf16le(self, w):
-        return int(o16.count_code_points(*self._stage(w), False))
+        return _int(o16.count_code_points(*self._stage(w), False))
 
     def count_utf16be(self, w):
-        return int(o16.count_code_points(*self._stage(w), True))
+        return _int(o16.count_code_points(*self._stage(w), True))
 
     def utf8_length_from_utf16le(self, w):
-        return int(o16.utf8_length(*self._stage(w), False))
+        return _int(o16.utf8_length(*self._stage(w), False))
 
     def utf8_length_from_utf16be(self, w):
-        return int(o16.utf8_length(*self._stage(w), True))
+        return _int(o16.utf8_length(*self._stage(w), True))
 
     def utf32_length_from_utf16le(self, w):
         return self.count_utf16le(w)
@@ -228,11 +249,11 @@ class TorchImplementation:
 
     def convert_valid_utf16le_to_utf8(self, w):
         out, total = o16.to_utf8_valid(*self._stage(w), False)
-        return _cut8(out, int(total))
+        return _cut8(out, _int(total))
 
     def convert_valid_utf16be_to_utf8(self, w):
         out, total = o16.to_utf8_valid(*self._stage(w), True)
-        return _cut8(out, int(total))
+        return _cut8(out, _int(total))
 
     # -- UTF-32 validation and lengths --------------------------------------
     def validate_utf32(self, w):
@@ -240,13 +261,13 @@ class TorchImplementation:
 
     def validate_utf32_with_errors(self, w):
         code, pos = o32.validate_with_errors(*self._stage(w))
-        return _res(*torch.stack([code, pos]).tolist())
+        return _res(*_scalars(code, pos))
 
     def utf8_length_from_utf32(self, w):
-        return int(o32.utf8_length(*self._stage(w)))
+        return _int(o32.utf8_length(*self._stage(w)))
 
     def utf16_length_from_utf32(self, w):
-        return int(o32.utf16_length(*self._stage(w)))
+        return _int(o32.utf16_length(*self._stage(w)))
 
     # -- UTF-8 <-> UTF-32 ----------------------------------------------------
     def convert_utf8_to_utf32_with_errors(self, b):
@@ -254,14 +275,14 @@ class TorchImplementation:
 
     def convert_valid_utf8_to_utf32(self, b):
         out, total = o8.to_utf32_valid(*self._stage(b))
-        return _cut32(out, int(total))
+        return _cut32(out, _int(total))
 
     def convert_utf32_to_utf8_with_errors(self, w):
         return _converted(*o32.to_utf8(*self._stage(w)), _cut8)
 
     def convert_valid_utf32_to_utf8(self, w):
         out, total = o32.to_utf8_valid(*self._stage(w))
-        return _cut8(out, int(total))
+        return _cut8(out, _int(total))
 
     # -- UTF-16 <-> UTF-32 ---------------------------------------------------
     def convert_utf16le_to_utf32_with_errors(self, w):
@@ -387,7 +408,7 @@ class TorchImplementation:
         if bom != encoding_type.unspecified:
             return int(bom)
         n = int(b.shape[0])
-        ok8, ok16, ok32 = torch.stack(odet.detect_encodings(*self._stage(b))).tolist()
+        ok8, ok16, ok32 = _scalars(*odet.detect_encodings(*self._stage(b)))
         out = int(encoding_type.UTF8) if ok8 else 0
         if n % 2 == 0 and ok16:
             out |= int(encoding_type.UTF16_LE)
@@ -420,9 +441,10 @@ class TorchImplementation:
         )
         # one sync for the scalars and the tail; then only the bytes of
         # whole quads come back (b64_finish cuts them further on error)
-        first_bad, nvalid, nvalid_at_bad, tail_start, *tail = torch.cat([
-            torch.stack([first_bad, nvalid, nvalid_at_bad, tail_start]),
-            tail_vals.to(torch.int64)]).tolist()
+        first_bad, nvalid, nvalid_at_bad, tail_start, *tail = trace.sync(
+            "impl.base64", torch.Tensor.tolist, torch.cat([
+                torch.stack([first_bad, nvalid, nvalid_at_bad, tail_start]),
+                tail_vals.to(torch.int64)]))
         return bh.b64_finish(
             srclen, pad_count, pad_pos, garbage, last_chunk,
             first_bad, nvalid, nvalid_at_bad,
@@ -434,7 +456,7 @@ class TorchImplementation:
         nfull = n // 3 * 3
         # 1536-multiple buckets, as the JAX package pads them (encode_bulk
         # runs the encode kernel on them)
-        x, _ = to_device(*_pad(src[:nfull], multiple=1536), self.device)
+        x, _ = self._stage(src[:nfull], multiple=1536)
         body = _cut8(ob.encode_bulk(x, bool(options & bh.BASE64_URL)),
                      nfull // 3 * 4)
         tail = bh.encode_tail(src[nfull:], options)

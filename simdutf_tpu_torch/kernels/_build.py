@@ -8,7 +8,8 @@ digest of the sources and flags, so a changed source rebuilds and an
 unchanged one is loaded as built. Nothing here runs at import.
 
 Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`call` raises when that is not 0.
+``cudaGetLastError()``; :func:`call` raises when that is not 0, and counts
+the launch (``trace.launch``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from .. import trace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "simdutf_tpu_torch"
@@ -92,22 +95,8 @@ SIGNATURES = {
     "lane_shapecast_probe": (_P, _I64, _I32, _P, _P),
 }
 
-#: kernel launches per wrapper name since the last :func:`reset_launches`
-LAUNCHES: dict[str, int] = {}
-
 _lock = threading.Lock()
-_count_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-
-
-def reset_launches() -> None:
-    with _count_lock:
-        LAUNCHES.clear()
-
-
-def count_launch(name: str) -> None:
-    with _count_lock:
-        LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
 
 
 def _nvcc() -> str:
@@ -191,11 +180,14 @@ def lib() -> ctypes.CDLL:
 
 def call(name: str, *args) -> None:
     """Launch C entry point ``name`` on the current stream of the
-    current device; raise if the launch failed."""
+    current device; raise if the launch failed. Every launch of the port
+    passes here, and is counted in :mod:`..trace`'s ``launches[name]``
+    while a profiler records."""
     stream = torch.cuda.current_stream().cuda_stream
     rc = getattr(lib(), name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError_t {rc})")
+    trace.launch(name)
 
 
 def lookback_scratch(nt: int, device) -> torch.Tensor:

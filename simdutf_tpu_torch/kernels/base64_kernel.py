@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .. import trace
 from ..ops.common import positions
 
 
@@ -37,6 +38,7 @@ def pack_ref(codes: torch.Tensor) -> torch.Tensor:
     return out.reshape(-1).to(torch.uint8)
 
 
+@trace.kernel
 def pack(codes: torch.Tensor) -> torch.Tensor:
     """uint8[n] code stream (n % 4 == 0) -> uint8[3n/4]: each group of 4
     codes c0..c3 becomes the 3 bytes of c0<<18 | c1<<12 | c2<<6 | c3."""
@@ -48,7 +50,6 @@ def pack(codes: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n // 4 * 3, dtype=torch.uint8, device=codes.device)
     if n:
         _build.call("b64_pack", codes.data_ptr(), n // 4, out.data_ptr())
-        _build.count_launch("b64_pack")
     return out
 
 
@@ -88,6 +89,7 @@ def encode_ref(data: torch.Tensor, url: bool) -> torch.Tensor:
     return unclassify(quads.reshape(-1), url).to(torch.uint8)
 
 
+@trace.kernel
 def encode(data: torch.Tensor, url: bool) -> torch.Tensor:
     """uint8[n] bytes (n % 3 == 0) -> uint8[4n/3] chars of the default or,
     with ``url``, the URL alphabet."""
@@ -99,7 +101,6 @@ def encode(data: torch.Tensor, url: bool) -> torch.Tensor:
     out = torch.empty(n // 3 * 4, dtype=torch.uint8, device=data.device)
     if n:
         _build.call("b64_encode", data.data_ptr(), n // 3, int(url), out.data_ptr())
-        _build.count_launch("b64_encode")
     return out
 
 
@@ -126,6 +127,7 @@ def clean_decode_ref(chars: torch.Tensor, nwords: int, url: bool = False,
     return out.reshape(-1).to(torch.uint8), flag
 
 
+@trace.kernel
 def clean_decode(chars: torch.Tensor, nwords: int, url: bool = False,
                  both: bool = False):
     """uint8[n] chars (n % 4 == 0) -> (uint8[3n/4], flag): each 4-char word
@@ -146,5 +148,4 @@ def clean_decode(chars: torch.Tensor, nwords: int, url: bool = False,
     flag = torch.zeros(1, dtype=torch.int32, device=chars.device)
     _build.call("clean_decode", chars.data_ptr(), n // 4, nwords, int(url), int(both),
                 out.data_ptr(), flag.data_ptr())
-    _build.count_launch("clean_decode")
     return out, flag[0]

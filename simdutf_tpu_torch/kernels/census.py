@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .. import trace
 from ..ops.common import bswap16, positions, shift_left, units_i32
 
 # result bits, value-for-value simdutf_tpu/kernels/census.py
@@ -62,6 +63,7 @@ def census_bits_ref(b: torch.Tensor, length: int) -> torch.Tensor:
     return bits
 
 
+@trace.kernel
 def census_bits(b: torch.Tensor, length: int) -> torch.Tensor:
     """OR-reduced violation/presence bits of the in-range bytes, as a 0-d
     int32 tensor on ``b``'s device (see :func:`census_bits_ref`)."""
@@ -71,7 +73,6 @@ def census_bits(b: torch.Tensor, length: int) -> torch.Tensor:
     out = torch.zeros(1, dtype=torch.int32, device=b.device)
     _build.call("census_utf8", b.data_ptr(), b.shape[0], length,
                 out.data_ptr())
-    _build.count_launch("census_utf8")
     return out[0]
 
 
@@ -104,6 +105,7 @@ def census16_bits_ref(w: torch.Tensor, length: int, be: bool = False) -> torch.T
     return bits
 
 
+@trace.kernel
 def census16_bits(w: torch.Tensor, length: int, be: bool = False) -> torch.Tensor:
     """OR-reduced violation bits of the in-range units of a uint16 buffer
     (``length`` in units), as a 0-d int32 tensor on ``w``'s device (see
@@ -113,5 +115,4 @@ def census16_bits(w: torch.Tensor, length: int, be: bool = False) -> torch.Tenso
         return census16_bits_ref(w, length, be)
     out = torch.zeros(1, dtype=torch.int32, device=w.device)
     _build.call("census_utf16", w.data_ptr(), length, int(be), out.data_ptr())
-    _build.count_launch("census_utf16")
     return out[0]

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .. import trace
 from ..ops.common import BIG
 
 TILE = 16384  # chars per tile; = TILE in csrc/base64.cu
@@ -40,6 +41,7 @@ def compact_codes_ref(chars: torch.Tensor, length: int, url: bool, both: bool):
     return ob.compact_plain(chars, length, url, both)
 
 
+@trace.kernel
 def compact_codes(chars: torch.Tensor, length: int, url: bool, both: bool):
     """Compact the alphabet codes of ``chars[:length]`` (uint8, or uint16
     char16 units; not empty). Returns (codes uint8[N], nvalid, first_bad,
@@ -72,5 +74,4 @@ def compact_codes(chars: torch.Tensor, length: int, url: bool, both: bool):
     _build.call("b64_compact16" if wide else "b64_compact8", chars.data_ptr(),
                 n, length, int(url), int(both), nt, scratch.data_ptr(),
                 codes.data_ptr(), res.data_ptr())
-    _build.count_launch("b64_compact")
     return codes, res[0], res[1], res[2], res[3]

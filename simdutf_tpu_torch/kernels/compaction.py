@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .. import trace
 
 
 def _check(val: torch.Tensor, keep: torch.Tensor):
@@ -45,6 +46,7 @@ def row_compact_ref(val: torch.Tensor, keep: torch.Tensor):
     return out[:, :width].contiguous(), k.sum(1).to(torch.int32)
 
 
+@trace.kernel
 def row_compact(val: torch.Tensor, keep: torch.Tensor):
     """(val, keep): (R, W) int32 (keep any integer or bool; nonzero keeps),
     W a power of two, else ValueError. Returns (out (R, W) int32, counts
@@ -60,5 +62,4 @@ def row_compact(val: torch.Tensor, keep: torch.Tensor):
     if rows:
         _build.call("row_compact", val.data_ptr(), keep.data_ptr(), rows, width,
                     out.data_ptr(), counts.data_ptr())
-        _build.count_launch("row_compact")
     return out, counts

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .. import trace
 from ..ops.common import BIG, positions, shift_right, to_u16
 
 TILE = 16384  # bytes per tile; = TILE in csrc/compose16.cu
@@ -59,10 +60,10 @@ def _launch(b: torch.Tensor, length: int, big_endian: bool, clamp: bool):
     _build.call("compose16", b.data_ptr(), n, length, nt, int(big_endian),
                 int(clamp), scratch.data_ptr(), out.data_ptr(), res.data_ptr(),
                 err_any.data_ptr())
-    _build.count_launch("utf8_to_utf16_compose")
     return out, res, err_any, scratch, nt
 
 
+@trace.kernel
 def to_utf16_compose(b: torch.Tensor, length: int, big_endian: bool,
                      clamp: bool = True):
     """Transcode ``b[:length]`` to UTF-16 (byte-swapped units when

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .. import trace
 from .compose16 import event_keys_ref, published_aggregates, tile_triples
 from ..ops.common import BIG, positions
 
@@ -58,10 +59,10 @@ def _launch(b: torch.Tensor, length: int):
     scratch = _build.lookback_scratch(nt, dev)
     _build.call("compose32", b.data_ptr(), n, length, nt, scratch.data_ptr(),
                 out.data_ptr(), res.data_ptr(), err_any.data_ptr())
-    _build.count_launch("utf8_to_utf32_compose")
     return out, res, err_any, scratch, nt
 
 
+@trace.kernel
 def to_utf32_compose(b: torch.Tensor, length: int):
     """Transcode ``b[:length]`` to UTF-32. Returns (out int32[N], total,
     err_any, err_pos, err_code, err_len), the scalars as 0-d int64 tensors

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .. import trace
 from ..ops.common import BIG, tile_glue
 
 TILE = 2048  # units per block; = TILE in csrc/compose8.cu
@@ -57,6 +58,7 @@ def to_utf8_compose_ref(w: torch.Tensor, length: int, be: bool,
     return out, total, err_pos != BIG, err_pos, err_code, err_len
 
 
+@trace.kernel
 def to_utf8_compose(w: torch.Tensor, length: int, be: bool,
                     mode: str = "validate"):
     """Transcode ``w[:length]`` (units byte-swapped when ``be``) to UTF-8.
@@ -98,5 +100,4 @@ def to_utf8_compose(w: torch.Tensor, length: int, be: bool,
 
     _build.call("compose8_emit", w.data_ptr(), length, int(be), valid, nt,
                 off.data_ptr(), out_len.data_ptr(), 3 * n, out.data_ptr())
-    _build.count_launch("utf16_to_utf8_compose")
     return out, total, err_any, err_pos, err_code, err_len

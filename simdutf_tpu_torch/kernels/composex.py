@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .. import trace
 from ..ops.common import BIG, tile_glue
 
 TILE = 2048  # elements per block; = EMITX_TILE (emitx.cuh), TILE (composex16.cu)
@@ -65,6 +66,7 @@ def u32_to_utf8_compose_ref(w: torch.Tensor, length: int):
     return out, total, err_pos != BIG, err_pos, err_code, err_len
 
 
+@trace.kernel
 def u32_to_utf8_compose(w: torch.Tensor, length: int):
     """Transcode the words ``w[:length]`` (int32 holding uint32 bits) to
     UTF-8. Returns (out uint8[4N], total, err_any, err_pos, err_code,
@@ -88,7 +90,6 @@ def u32_to_utf8_compose(w: torch.Tensor, length: int):
         "composex_count", nt, w.device, w.data_ptr(), length)
     _build.call("composex_emit", w.data_ptr(), length, nt, off.data_ptr(),
                 out.data_ptr())
-    _build.count_launch("utf32_to_utf8_compose")
     return out, total, err_any, err_pos, err_code, err_len
 
 
@@ -102,6 +103,7 @@ def u16_to_utf32_compose_ref(w: torch.Tensor, length: int, be: bool):
     return out, total, err_pos != BIG, err_pos, err_code, err_len
 
 
+@trace.kernel
 def u16_to_utf32_compose(w: torch.Tensor, length: int, be: bool):
     """Transcode the units ``w[:length]`` (byte-swapped when ``be``) to
     UTF-32. Returns (out int32[N] of uint32 words, total, err_any, err_pos,
@@ -125,7 +127,6 @@ def u16_to_utf32_compose(w: torch.Tensor, length: int, be: bool):
         "u16_to_u32_count", nt, w.device, w.data_ptr(), length, int(be))
     _build.call("u16_to_u32_emit", w.data_ptr(), length, int(be), nt,
                 off.data_ptr(), out.data_ptr())
-    _build.count_launch("utf16_to_utf32_compose")
     return out, total, err_any, err_pos, err_code, err_len
 
 
@@ -139,6 +140,7 @@ def u32_to_utf16_compose_ref(w: torch.Tensor, length: int, be: bool):
     return out, total, err_pos != BIG, err_pos, err_code, err_len
 
 
+@trace.kernel
 def u32_to_utf16_compose(w: torch.Tensor, length: int, be: bool):
     """Transcode the words ``w[:length]`` (int32 holding uint32 bits) to
     UTF-16 (units byte-swapped when ``be``). Returns (out uint16[2N],
@@ -163,7 +165,6 @@ def u32_to_utf16_compose(w: torch.Tensor, length: int, be: bool):
         "u32_to_u16_count", nt, w.device, w.data_ptr(), length)
     _build.call("u32_to_u16_emit", w.data_ptr(), length, int(be), nt,
                 off.data_ptr(), out.data_ptr())
-    _build.count_launch("utf32_to_utf16_compose")
     return out, total, err_any, err_pos, err_code, err_len
 
 
@@ -175,6 +176,7 @@ def latin1_to_utf8_compose_ref(b: torch.Tensor, length: int):
     return ol1._utf8_general(b, length)
 
 
+@trace.kernel
 def latin1_to_utf8_compose(b: torch.Tensor, length: int):
     """Transcode the Latin-1 bytes ``b[:length]`` to UTF-8. Returns (out
     uint8[2N], total): the 1 or 2 bytes of every in-range byte, zero past
@@ -194,5 +196,4 @@ def latin1_to_utf8_compose(b: torch.Tensor, length: int):
     off = inc - counts
     _build.call("latin1_utf8_emit", b.data_ptr(), length, nt, off.data_ptr(),
                 out.data_ptr())
-    _build.count_launch("latin1_to_utf8_compose")
     return out, inc[-1]

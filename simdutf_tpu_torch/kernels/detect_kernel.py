@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .. import trace
 from ..ops.common import BIG
 
 
@@ -29,6 +30,7 @@ def detect_fused_ref(b: torch.Tensor, length: int):
     return odet.detect_encodings_plain(b, length)
 
 
+@trace.kernel
 def detect_fused(b: torch.Tensor, length: int):
     """(utf8_ok, utf16le_ok, utf32le_ok) of ``b[:length]`` as 0-d int64
     tensors (1 or 0) on ``b``'s device: UTF-8 valid; no lone surrogate in
@@ -42,6 +44,5 @@ def detect_fused(b: torch.Tensor, length: int):
     if length:
         _build.call("detect_encodings", b.data_ptr(), length, key.data_ptr(),
                     flags.data_ptr())
-        _build.count_launch("detect_encodings")
     f = flags[0].to(torch.int64)
     return ((key[0] == BIG << 8).to(torch.int64), 1 - (f & 1), 1 - (f >> 1 & 1))

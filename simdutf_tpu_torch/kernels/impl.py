@@ -33,9 +33,10 @@ import numpy as np
 import torch
 
 from .. import base64_host as bh
+from .. import trace
 from .. import validate_host as vh
 from ..errors import Result, error_code as ec
-from ..impl import TorchImplementation, _cut8
+from ..impl import TorchImplementation, _cut8, _int, _scalars
 from . import base64_kernel as kb64
 from . import compaction as kc
 from . import swar as ksw
@@ -71,7 +72,7 @@ class TorchPallasImplementation(TorchImplementation):
                         b"\xed\xa0\x80", b"\xc0\xaf"):
                 arr = np.frombuffer(b"ok " + bad + b" tail", np.uint8)
                 x, n = self._stage(arr)
-                flagged = int(ksw.utf8_swar_first_bad_word(x, n)) != BIG
+                flagged = _int(ksw.utf8_swar_first_bad_word(x, n)) != BIG
                 assert flagged == vh.validate_utf8_with_errors(arr).is_err, bad
 
         def phase_planes():
@@ -79,15 +80,16 @@ class TorchPallasImplementation(TorchImplementation):
             chars = _pybase64.b64encode(raw)
             x, n = self._stage(np.frombuffer(chars, np.uint8))
             out, flag = kb64.clean_decode(x, n // 4)
-            assert int(flag) == 0
+            assert _int(flag) == 0
             assert _cut8(out, len(raw)).tobytes() == raw
 
         def widen_image():
             data = bytes(range(128)) * 8
             x, n = self._stage(np.frombuffer(data, np.uint8))
             out, flag = ktr.ascii_widen_utf16(x, n, False)
-            assert int(flag) == 0
-            got = out[:n].view(torch.int16).cpu().numpy().tobytes()
+            assert _int(flag) == 0
+            got = trace.sync("pallas.check", torch.Tensor.cpu,
+                             out[:n].view(torch.int16)).numpy().tobytes()
             assert got == data.decode().encode("utf-16-le")
 
         def lane_compaction():
@@ -96,7 +98,8 @@ class TorchPallasImplementation(TorchImplementation):
             keep = rng.random((8, 128)) < 0.4
             out, cnt = kc.row_compact(torch.from_numpy(val).to(self.device),
                                       torch.from_numpy(keep).to(self.device))
-            out, cnt = out.cpu().numpy(), cnt.cpu().numpy()
+            out, cnt = (trace.sync("pallas.check", torch.Tensor.cpu, t).numpy()
+                        for t in (out, cnt))
             for r in range(8):
                 want = val[r][keep[r]]
                 assert int(cnt[r]) == want.shape[0]
@@ -119,7 +122,7 @@ class TorchPallasImplementation(TorchImplementation):
     # -- UTF-8 validation ----------------------------------------------------
     def validate_utf8(self, b):
         x, n = self._stage(b)
-        return int(ksw.utf8_swar_first_bad_word(x, n)) == BIG
+        return _int(ksw.utf8_swar_first_bad_word(x, n)) == BIG
 
     def validate_utf8_with_errors(self, b):
         """The SWAR flag, then the exact (code, pos) from a host window
@@ -129,7 +132,7 @@ class TorchPallasImplementation(TorchImplementation):
         bytes to a lead; truncation events at the window's end lie beyond
         it (simdutf_tpu/kernels/impl.py:137-194)."""
         x, n = self._stage(b)
-        word = int(ksw.utf8_swar_first_bad_word(x, n))
+        word = _int(ksw.utf8_swar_first_bad_word(x, n))
         if word == BIG:
             return Result(ec.SUCCESS, n)
         fb = word * 4
@@ -142,7 +145,7 @@ class TorchPallasImplementation(TorchImplementation):
         if res.is_err:
             return Result(res.error, start + res.count)
         self.safety_net += 1
-        pos, code = torch.stack(kv.utf8_first_event_len(x, n)).tolist()
+        pos, code = _scalars(*kv.utf8_first_event_len(x, n))
         if pos == BIG:
             return Result(ec.SUCCESS, n)
         return Result(ec(code), pos)
@@ -150,7 +153,7 @@ class TorchPallasImplementation(TorchImplementation):
     # -- ASCII validation ----------------------------------------------------
     def validate_ascii_with_errors(self, b):
         x, n = self._stage(b)
-        word = int(ksw.ascii_swar_first_bad_word(x, n))
+        word = _int(ksw.ascii_swar_first_bad_word(x, n))
         if word != BIG:
             base = word * 4  # the exact byte within the flagged word
             for k in range(4):
@@ -166,7 +169,7 @@ class TorchPallasImplementation(TorchImplementation):
         error is in [fb - 4, fb + 8), its start moved back one unit where it
         would split a pair (simdutf_tpu/kernels/impl.py:267-312)."""
         x, n = self._stage(w)
-        word = int(ksw.utf16_swar_first_bad_word(x, n, be))
+        word = _int(ksw.utf16_swar_first_bad_word(x, n, be))
         if word == BIG:
             return Result(ec.SUCCESS, n)
         fb = word * 2
@@ -181,7 +184,7 @@ class TorchPallasImplementation(TorchImplementation):
         if res.is_err:
             return Result(res.error, start + res.count)
         self.safety_net += 1
-        pos = int(k16.utf16_first_bad(x, n, be))
+        pos = _int(k16.utf16_first_bad(x, n, be))
         if pos >= n:
             return Result(ec.SUCCESS, n)
         return Result(ec.SURROGATE, pos)
@@ -199,7 +202,7 @@ class TorchPallasImplementation(TorchImplementation):
         if not self._peek_ascii8(b):
             return False
         x, n = self._stage(b)
-        return int(ksw.ascii_swar_first_bad_word(x, n)) == BIG
+        return _int(ksw.ascii_swar_first_bad_word(x, n)) == BIG
 
     def convert_valid_utf8_to_latin1(self, b):
         if self._is_ascii_fast(b):
@@ -235,7 +238,7 @@ class TorchPallasImplementation(TorchImplementation):
         x, _ = self._stage(src[:nfull])
         out, flag = kb64.clean_decode(x, nfull // 4, url=bool(options & bh.BASE64_URL),
                                       both=bool(options & bh.BASE64_DEFAULT_OR_URL))
-        if int(flag):
+        if _int(flag):
             return super().base64_to_binary_details(src, options, last_chunk)
         outlen = nfull // 4 * 3
         body = _cut8(out, outlen)

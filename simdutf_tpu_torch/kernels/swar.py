@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .. import trace
 from ..ops.common import BIG, positions, zero_tail
 
 _M = 0xFFFFFFFF
@@ -127,10 +128,10 @@ def utf16_swar_first_bad_word_ref(w: torch.Tensor, length: int, be: bool) -> tor
 def _launch(name: str, x: torch.Tensor, length: int, *extra) -> torch.Tensor:
     out = torch.full((1,), BIG, dtype=torch.int32, device=x.device)
     _build.call(name, x.data_ptr(), length, *extra, out.data_ptr())
-    _build.count_launch(name)
     return out[0]
 
 
+@trace.kernel
 def utf8_swar_first_bad_word(b: torch.Tensor, length: int) -> torch.Tensor:
     """Index of the first 32-bit word of ``b[:length]`` (4 bytes each, the
     bytes at/after ``length`` zero) that holds a byte of the SWAR UTF-8
@@ -142,6 +143,7 @@ def utf8_swar_first_bad_word(b: torch.Tensor, length: int) -> torch.Tensor:
     return _launch("utf8_swar_first_bad_word", b, length)
 
 
+@trace.kernel
 def ascii_swar_first_bad_word(b: torch.Tensor, length: int) -> torch.Tensor:
     """Index of the first 32-bit word of ``b[:length]`` with a byte >= 0x80,
     as a 0-d int32 tensor on ``b``'s device; BIG when every byte is ASCII."""
@@ -151,6 +153,7 @@ def ascii_swar_first_bad_word(b: torch.Tensor, length: int) -> torch.Tensor:
     return _launch("ascii_swar_first_bad_word", b, length)
 
 
+@trace.kernel
 def utf16_swar_first_bad_word(w: torch.Tensor, length: int, be: bool) -> torch.Tensor:
     """Index of the first 32-bit word (2 units) of ``w[:length]`` (stored
     byte-swapped when ``be``) that holds a high surrogate not followed by

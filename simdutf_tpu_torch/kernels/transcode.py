@@ -36,6 +36,7 @@ import ctypes
 import torch
 
 from . import _build
+from .. import trace
 from ..ops.common import bswap16, bytes_out, positions, to_u16, zero_tail
 
 
@@ -91,11 +92,12 @@ def _native(w: torch.Tensor, length: int, be: bool) -> torch.Tensor:
 
 def _wrapper(name: str, ref, check, out_dtype: torch.dtype, per: int, doc: str,
              endian: bool = True):
-    """The public function ``name``: ``ref`` on a CPU tensor (``check``
-    validates the input), else one launch of entry point ``name`` into a
-    fresh output buffer of ``per * n`` elements of ``out_dtype`` and a
-    zeroed device flag. Without ``endian`` (UTF-8 <-> UTF-32, which have no
-    byte order) the function takes no ``be`` and the launch passes 0."""
+    """The public function ``name`` of ``ref``'s module, in its kernel span:
+    ``ref`` on a CPU tensor (``check`` validates the input), else one
+    launch of entry point ``name`` into a fresh output buffer of
+    ``per * n`` elements of ``out_dtype`` and a zeroed device flag.
+    Without ``endian`` (UTF-8 <-> UTF-32, which have no byte order) the
+    function takes no ``be`` and the launch passes 0."""
 
     def launch(x: torch.Tensor, length: int, be: bool):
         length = int(length)
@@ -108,7 +110,6 @@ def _wrapper(name: str, ref, check, out_dtype: torch.dtype, per: int, doc: str,
             out = torch.empty(per * n, dtype=out_dtype, device=x.device)
         flag = torch.zeros(1, dtype=torch.int32, device=x.device)
         _build.call(name, x.data_ptr(), n, length, int(be), out.data_ptr(), flag.data_ptr())
-        _build.count_launch(name)
         return out, flag[0]
 
     if endian:
@@ -120,7 +121,8 @@ def _wrapper(name: str, ref, check, out_dtype: torch.dtype, per: int, doc: str,
 
     wrapper.__name__ = wrapper.__qualname__ = name
     wrapper.__doc__ = doc
-    return wrapper
+    wrapper.__module__ = ref.__module__
+    return trace.kernel(wrapper)
 
 
 # --- UTF-8 -> UTF-16 -----------------------------------------------------------

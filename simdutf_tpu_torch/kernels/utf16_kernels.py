@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .. import trace
 from ..ops.common import BIG, bswap16, positions, to_u16, units_i32
 
 _MODES = {"count": 0, "utf8len": 1}
@@ -41,6 +42,7 @@ def utf16_first_bad_ref(w: torch.Tensor, length: int, be: bool) -> torch.Tensor:
     return o16.first_error(o16.native(w, length, be), length)
 
 
+@trace.kernel
 def utf16_first_bad(w: torch.Tensor, length: int, be: bool) -> torch.Tensor:
     """Least position in ``w[:length]`` of a high surrogate not followed by
     a low one or a low one not preceded by a high one (units byte-swapped
@@ -51,7 +53,6 @@ def utf16_first_bad(w: torch.Tensor, length: int, be: bool) -> torch.Tensor:
         return utf16_first_bad_ref(w, length, be)
     out = torch.full((1,), BIG, dtype=torch.int64, device=w.device)
     _build.call("utf16_first_bad", w.data_ptr(), length, int(be), out.data_ptr())
-    _build.count_launch("utf16_first_bad")
     return out[0]
 
 
@@ -72,6 +73,7 @@ def utf16_reduce_ref(w: torch.Tensor, length: int, be: bool, what: str) -> torch
     return part + (wide & in_r).sum()
 
 
+@trace.kernel
 def utf16_reduce(w: torch.Tensor, length: int, be: bool, what: str) -> torch.Tensor:
     """Count ``what`` ("count" or "utf8len") over ``w[:length]``, as a 0-d
     int64 tensor on ``w``'s device (see :func:`utf16_reduce_ref`)."""
@@ -81,7 +83,6 @@ def utf16_reduce(w: torch.Tensor, length: int, be: bool, what: str) -> torch.Ten
     out = torch.zeros(1, dtype=torch.int64, device=w.device)
     _build.call("utf16_count", w.data_ptr(), length, int(be), _mode(what),
                 out.data_ptr())
-    _build.count_launch("utf16_count")
     return out[0]
 
 
@@ -94,6 +95,7 @@ def utf16_to_well_formed_ref(w: torch.Tensor, length: int, be: bool) -> torch.Te
     return to_u16(torch.where(bad, 0xFDFF if be else 0xFFFD, units_i32(w)))
 
 
+@trace.kernel
 def utf16_to_well_formed(w: torch.Tensor, length: int, be: bool) -> torch.Tensor:
     """``w`` (units byte-swapped when ``be``) with every lone surrogate of
     ``w[:length]`` (a high one not followed by a low one below the
@@ -108,5 +110,4 @@ def utf16_to_well_formed(w: torch.Tensor, length: int, be: bool) -> torch.Tensor
     if n:
         _build.call("utf16_to_well_formed", w.data_ptr(), n, length, int(be),
                     out.data_ptr())
-        _build.count_launch("utf16_to_well_formed")
     return out

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .. import trace
 from ..ops.common import BIG, positions
 
 _MODES = {"count": 0, "utf16": 1, "latin1": 2}
@@ -44,6 +45,7 @@ def utf8_first_event_len_ref(b: torch.Tensor, length: int):
     return o8._first_error_from(o8.classify(b, length), length)
 
 
+@trace.kernel
 def utf8_first_event_len(b: torch.Tensor, length: int):
     """Exact first UTF-8 error of ``b[:length]``; bytes at/after
     ``length`` read as zero, so a sequence cut at the length reports
@@ -54,7 +56,6 @@ def utf8_first_event_len(b: torch.Tensor, length: int):
         return utf8_first_event_len_ref(b, length)
     key = torch.full((1,), BIG << 8, dtype=torch.int64, device=b.device)
     _build.call("utf8_first_event", b.data_ptr(), length, key.data_ptr())
-    _build.count_launch("utf8_first_event")
     return key[0] >> 8, key[0] & 0xFF
 
 
@@ -73,6 +74,7 @@ def ascii_first_bad_ref(b: torch.Tensor, length: int) -> torch.Tensor:
     return torch.where(bad, idx, torch.full_like(idx, BIG)).min()
 
 
+@trace.kernel
 def ascii_first_bad(b: torch.Tensor, length: int) -> torch.Tensor:
     """The first position of ``b[:length]`` whose byte is >= 0x80, as a
     0-d int64 tensor on ``b``'s device; BIG when every byte is ASCII.
@@ -84,7 +86,6 @@ def ascii_first_bad(b: torch.Tensor, length: int) -> torch.Tensor:
     out = torch.full((1,), BIG, dtype=torch.int64, device=b.device)
     if length:
         _build.call("ascii_first_bad", b.data_ptr(), length, out.data_ptr())
-        _build.count_launch("ascii_first_bad")
     return out[0]
 
 
@@ -110,18 +111,20 @@ def _count_call(b: torch.Tensor, length: int, what: str) -> torch.Tensor:
     out = torch.zeros(1, dtype=torch.int64, device=b.device)
     _build.call("utf8_count", b.data_ptr(), length, _MODES[what],
                 out.data_ptr())
-    _build.count_launch("utf8_count")
     return out[0]
 
 
+@trace.kernel
 def utf8_count(b: torch.Tensor, length: int) -> torch.Tensor:
     return _count_call(b, length, "count")
 
 
+@trace.kernel
 def utf8_utf16_length(b: torch.Tensor, length: int) -> torch.Tensor:
     return _count_call(b, length, "utf16")
 
 
+@trace.kernel
 def latin1_utf8_length(b: torch.Tensor, length: int) -> torch.Tensor:
     """utf8_length_from_latin1: length + count of high bytes."""
     return _count_call(b, length, "latin1")
@@ -147,6 +150,7 @@ def utf32_first_bad_ref(w: torch.Tensor, length: int) -> torch.Tensor:
     return o32.first_error(o32.native(w, length), length)[0]
 
 
+@trace.kernel
 def utf32_first_bad(w: torch.Tensor, length: int) -> torch.Tensor:
     """Least index ``< length`` of a word above 0x10FFFF (a word >= 2^31,
     negative in ``w``'s int32, included) or in D800-DFFF, as a 0-d int64
@@ -156,7 +160,6 @@ def utf32_first_bad(w: torch.Tensor, length: int) -> torch.Tensor:
         return utf32_first_bad_ref(w, length)
     out = torch.full((1,), BIG, dtype=torch.int64, device=w.device)
     _build.call("utf32_first_bad", w.data_ptr(), length, out.data_ptr())
-    _build.count_launch("utf32_first_bad")
     return out[0]
 
 
@@ -174,6 +177,7 @@ def utf32_count_ref(w: torch.Tensor, length: int, what: str) -> torch.Tensor:
     return (x.shape[0] + n.sum()).to(torch.int64)
 
 
+@trace.kernel
 def utf32_count(w: torch.Tensor, length: int, what: str) -> torch.Tensor:
     """Count ``what`` ("utf8len" or "utf16len") over ``w[:length]``, as a
     0-d int64 tensor on ``w``'s device (see :func:`utf32_count_ref`)."""
@@ -183,7 +187,6 @@ def utf32_count(w: torch.Tensor, length: int, what: str) -> torch.Tensor:
         return utf32_count_ref(w, length, what)
     out = torch.zeros(1, dtype=torch.int64, device=w.device)
     _build.call("utf32_count", w.data_ptr(), length, mode, out.data_ptr())
-    _build.count_launch("utf32_count")
     return out[0]
 
 
@@ -198,6 +201,7 @@ def lane_shapecast_probe_ref(x: torch.Tensor, salt: int) -> torch.Tensor:
     return torch.stack([a, b, a, b], dim=1).reshape(x.shape)
 
 
+@trace.kernel
 def lane_shapecast_probe(x: torch.Tensor, salt: int) -> torch.Tensor:
     """(R, C) int32, C % 4 == 0 -> (R, C) int32: ``x ^ salt``, then in each
     quad q0..q3 of a row the lanes ``q0 ^ q3, q1 ^ q2, q0 ^ q3, q1 ^ q2``
@@ -214,5 +218,4 @@ def lane_shapecast_probe(x: torch.Tensor, salt: int) -> torch.Tensor:
     if x.numel():
         _build.call("lane_shapecast_probe", x.data_ptr(), x.numel() // 4, int(salt),
                     out.data_ptr())
-        _build.count_launch("lane_shapecast_probe")
     return out

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..kernels import base64_kernel as kb
 from ..kernels import compact64 as kc64
 from .common import BIG, excl_scan, positions, scatter_writes, units_i32
@@ -128,6 +129,7 @@ def decode_bulk(chars: torch.Tensor, length, url: bool, both: bool):
                    compact_plain(chars, length, url, both))
 
 
+@trace.route
 def decode_bulk_routed(chars: torch.Tensor, length, url: bool, both: bool):
     """The port's device route: the compaction kernel
     (kernels/compact64.compact_codes) for uint8 and uint16 chars at every
@@ -146,6 +148,7 @@ def encode_small(data: torch.Tensor, url: bool) -> torch.Tensor:
     return kb.encode_ref(data, url)
 
 
+@trace.route
 def encode_bulk(data: torch.Tensor, url: bool) -> torch.Tensor:
     """data: padded uint8[N] with N % 3 == 0. Encodes whole 3-byte groups
     (the caller appends the <= 2-byte tail and padding on the host).

@@ -92,8 +92,8 @@ def route(branches, default):
     """Host-side pick of the first branch whose predicate holds, else
     ``default``. ``branches`` = [(bool, fn), ...]; the predicates are
     Python bools, so the caller pays one device sync per call to read
-    them (one ``.item()`` on the census bits), where the JAX package
-    selects on the device with ``lax.switch``."""
+    them (one read of the census bits through ``trace.sync``), where the
+    JAX package selects on the device with ``lax.switch``."""
     for pred, fn in branches:
         if pred:
             return fn()

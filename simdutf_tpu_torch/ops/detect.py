@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..kernels import detect_kernel as kdet
 from . import utf8 as o8, utf16 as o16, utf32 as o32
 from .common import BIG
@@ -34,6 +35,7 @@ def detect_encodings_plain(b: torch.Tensor, length: int):
     return tuple((p == BIG).to(torch.int64) for p in (pos8, pos16, pos32))
 
 
+@trace.route
 def detect_encodings(b: torch.Tensor, length: int):
     """(utf8_ok, utf16le_ok, utf32le_ok) of ``b[:length]`` as 0-d int64
     tensors: one launch of the detect kernel."""

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..kernels import census as kcen
 from ..kernels import composex as kcx
 from ..kernels import transcode as ktr
@@ -44,11 +45,12 @@ def census(b: torch.Tensor, length: int):
     """(ascii, allhi) as Python bools from one census pass and one device
     sync: every in-range byte below 0x80; every one at or above 0x80, and
     at least one."""
-    bits = int(kcen.census_bits(b, length))
+    bits = trace.sync("latin1.census", int, kcen.census_bits(b, length))
     return ((bits & kcen.BIT_NONASCII) == 0,
             (bits & kcen.BIT_HASLO) == 0 and length > 0)
 
 
+@trace.route
 def to_utf8(b: torch.Tensor, length: int):
     """Returns (out uint8[2N], out_len), routed on the census: an all-ASCII
     buffer is a copy, an all-high one a fixed-rate 1:2 expand (plain torch,
@@ -71,6 +73,7 @@ def to_utf8(b: torch.Tensor, length: int):
                  lambda: kcx.latin1_to_utf8_compose(b, length))
 
 
+@trace.route
 def to_utf16(b: torch.Tensor, length: int, big_endian: bool) -> torch.Tensor:
     """uint16[N]: every byte of the buffer widened, past ``length`` too (a
     whole-buffer widen, as in the JAX package): the ASCII widen kernel
@@ -79,6 +82,7 @@ def to_utf16(b: torch.Tensor, length: int, big_endian: bool) -> torch.Tensor:
     return ktr.ascii_widen_utf16(b, b.shape[0], big_endian)[0]
 
 
+@trace.route
 def to_utf32(b: torch.Tensor, length: int) -> torch.Tensor:
     """int32[N] of uint32 words: every byte of the buffer widened, past
     ``length`` too (a whole-buffer widen, as in the JAX package): the

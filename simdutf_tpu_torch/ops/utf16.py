@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..errors import error_code as ec
 
 from ..kernels import census as kcen
@@ -76,6 +77,7 @@ def first_error(wn: torch.Tensor, length: int) -> torch.Tensor:
     return torch.where(lone_surrogates(wn, length), idx, torch.full_like(idx, BIG)).min()
 
 
+@trace.route
 def validate_with_errors(w: torch.Tensor, length: int, big_endian: bool):
     """-> (err_code, err_pos); (0, length) on success. One pass of the
     first-bad kernel (kernels/utf16_kernels.utf16_first_bad)."""
@@ -85,10 +87,12 @@ def validate_with_errors(w: torch.Tensor, length: int, big_endian: bool):
             torch.where(ok, torch.full_like(pos, length), pos))
 
 
+@trace.route
 def count_code_points(w: torch.Tensor, length: int, big_endian: bool) -> torch.Tensor:
     return k16.utf16_reduce(w, length, big_endian, "count")
 
 
+@trace.route
 def utf8_length(w: torch.Tensor, length: int, big_endian: bool) -> torch.Tensor:
     return k16.utf16_reduce(w, length, big_endian, "utf8len")
 
@@ -97,7 +101,7 @@ def census(w: torch.Tensor, length: int, big_endian: bool):
     """(ascii, u2r, u3r, astral) as Python bools from ONE census pass plus
     one device sync; each is an exact validity proof for its class (see
     simdutf_tpu/ops/utf16.census)."""
-    bits = int(kcen.census16_bits(w, length, big_endian))
+    bits = trace.sync("utf16.census", int, kcen.census16_bits(w, length, big_endian))
     pos = length > 0
     return (
         (bits & kcen.BIT16_NONASCII) == 0,
@@ -235,6 +239,7 @@ def _general_utf8(w: torch.Tensor, length: int, big_endian: bool):
             torch.where(err_any, err_len, total))
 
 
+@trace.route
 def to_utf8(w: torch.Tensor, length: int, big_endian: bool):
     """Validating transcode, routed on a one-pass census: whole-buffer
     ASCII, uniform 0x80..0x7FF, uniform 0x800..0xFFFF (no surrogate) or
@@ -261,6 +266,7 @@ def to_utf8(w: torch.Tensor, length: int, big_endian: bool):
     )
 
 
+@trace.route
 def to_utf8_valid(w: torch.Tensor, length: int, big_endian: bool):
     """convert_valid_utf16*_to_utf8: assumes valid input. Returns
     (out uint8[3N], out_len), census-routed like :func:`to_utf8`; all other
@@ -283,12 +289,14 @@ def to_utf8_valid(w: torch.Tensor, length: int, big_endian: bool):
     )
 
 
+@trace.route
 def change_endianness(w: torch.Tensor) -> torch.Tensor:
     """Every unit of the buffer byte-swapped (uint16[N]). A torch byte swap
     on the buffer's device: the JAX package has no kernel here either."""
     return to_u16(bswap16(units_i32(w)))
 
 
+@trace.route
 def to_well_formed(w: torch.Tensor, length: int, big_endian: bool) -> torch.Tensor:
     """Every lone surrogate of ``w[:length]`` replaced by U+FFFD in the
     buffer's byte order; units at/after ``length`` keep their stored value
@@ -307,7 +315,8 @@ def census32(w: torch.Tensor, length: int, big_endian: bool):
     # -8193 (>> 11 gives -5), and a BE unit's native high byte is its low
     x = w.view(torch.int16)[:length]
     sur = (((x & 0xF8) == 0xD8) if big_endian else ((x >> 11) == -5)).any()
-    bits, sur = torch.stack([bits.to(torch.int64), sur.to(torch.int64)]).tolist()
+    bits, sur = trace.sync("utf16.census32", torch.Tensor.tolist,
+                           torch.stack([bits.to(torch.int64), sur.to(torch.int64)]))
     astral = (bits & kcen.BIT16_VASTRAL) == 0 and length % 2 == 0 and length > 0
     return not sur, astral
 
@@ -353,6 +362,7 @@ def _utf32_general_parts(w: torch.Tensor, length: int, big_endian: bool):
     return err_pos, err_code, out, total, count_before(off, err_pos)
 
 
+@trace.route
 def to_utf32(w: torch.Tensor, length: int, big_endian: bool):
     """Validating UTF-16 -> UTF-32, routed on :func:`census32`: a buffer
     with no surrogate widens, an all-pairs one maps each pair to a word,
@@ -384,6 +394,7 @@ def to_utf32(w: torch.Tensor, length: int, big_endian: bool):
     return route([(p, wrap(br)) for p, br in zip((bmp, astral), fast)], general)
 
 
+@trace.route
 def to_utf32_valid(w: torch.Tensor, length: int, big_endian: bool):
     """convert_valid_utf16*_to_utf32: assumes valid input. Returns
     (out int32[N], out_len), routed like :func:`to_utf32`."""
@@ -402,6 +413,7 @@ def to_utf32_valid(w: torch.Tensor, length: int, big_endian: bool):
                  lambda: kcx.u16_to_utf32_compose(w, length, big_endian)[:2])
 
 
+@trace.route
 def to_latin1(w: torch.Tensor, length: int, big_endian: bool):
     """Returns (err_code, err_pos, out uint8[N], out_len): the first unit
     above 0xFF is TOO_LARGE (surrogates are irrelevant), and ``out`` holds
@@ -420,6 +432,7 @@ def to_latin1(w: torch.Tensor, length: int, big_endian: bool):
             torch.where(ok, length, err_pos))
 
 
+@trace.route
 def to_latin1_valid(w: torch.Tensor, length: int, big_endian: bool):
     """convert_valid_utf16*_to_latin1: a narrowing store. (out uint8[N],
     out_len)."""

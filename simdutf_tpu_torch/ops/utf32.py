@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..errors import error_code as ec
 from ..kernels import composex as kcx
 from ..kernels import transcode32 as ktr32
@@ -64,6 +65,7 @@ def _code_at(w: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return torch.where(pos == BIG, 0, code).to(torch.int64)
 
 
+@trace.route
 def validate_with_errors(w: torch.Tensor, length: int):
     """-> (err_code, err_pos); (0, length) on success. One pass of the
     first-bad kernel (kernels/validate.utf32_first_bad); the code is read
@@ -75,10 +77,12 @@ def validate_with_errors(w: torch.Tensor, length: int):
             torch.where(ok, torch.full_like(pos, length), pos))
 
 
+@trace.route
 def utf8_length(w: torch.Tensor, length: int) -> torch.Tensor:
     return kv.utf32_count(w, length, "utf8len")
 
 
+@trace.route
 def utf16_length(w: torch.Tensor, length: int) -> torch.Tensor:
     return kv.utf32_count(w, length, "utf16len")
 
@@ -96,8 +100,9 @@ def census(w: torch.Tensor, length: int):
     if length == 0:
         return True, False, False, False, True
     lo, hi = torch.aminmax(w[:length])
-    lo, hi, bad = torch.stack([lo.to(torch.int64), hi.to(torch.int64),
-                               kv.utf32_first_bad(w, length)]).tolist()
+    lo, hi, bad = trace.sync("utf32.census", torch.Tensor.tolist,
+                             torch.stack([lo.to(torch.int64), hi.to(torch.int64),
+                                          kv.utf32_first_bad(w, length)]))
     if lo < 0:  # a word >= 2^31: above every class
         return False, False, False, False, False
     sur = bad != BIG
@@ -170,6 +175,7 @@ def _utf8_general_parts(w: torch.Tensor, length: int):
     return err_pos, err_code, out.to(torch.uint8), total, err_len
 
 
+@trace.route
 def to_utf8(w: torch.Tensor, length: int):
     """Validating transcode, routed on the census: whole-buffer ASCII,
     uniform 2-, 3-byte or astral input takes a fixed-rate branch (the
@@ -202,6 +208,7 @@ def to_utf8(w: torch.Tensor, length: int):
                  general)
 
 
+@trace.route
 def to_utf8_valid(w: torch.Tensor, length: int):
     """convert_valid_utf32_to_utf8: assumes valid input. Returns
     (out uint8[4N], out_len), census-routed like :func:`to_utf8`."""
@@ -263,6 +270,7 @@ def _utf16_general_parts(w: torch.Tensor, length: int, big_endian: bool):
     return err_pos, err_code, to_u16(out), total, count_before(off, err_pos)
 
 
+@trace.route
 def to_utf16(w: torch.Tensor, length: int, big_endian: bool):
     """Validating UTF-32 -> UTF-16, routed on the census: whole-buffer BMP
     (no surrogate) or astral input takes a fixed-rate branch (the census
@@ -294,6 +302,7 @@ def to_utf16(w: torch.Tensor, length: int, big_endian: bool):
     return route([(p, wrap(br)) for p, br in zip((bmp, astral), fast)], general)
 
 
+@trace.route
 def to_utf16_valid(w: torch.Tensor, length: int, big_endian: bool):
     """convert_valid_utf32_to_utf16*: assumes valid input. Returns
     (out uint16[2N], out_len), census-routed like :func:`to_utf16`."""
@@ -312,6 +321,7 @@ def to_utf16_valid(w: torch.Tensor, length: int, big_endian: bool):
                  lambda: kcx.u32_to_utf16_compose(w, length, big_endian)[:2])
 
 
+@trace.route
 def to_latin1(w: torch.Tensor, length: int):
     """Returns (err_code, err_pos, out uint8[N], out_len): the first word
     above 0xFF (as uint32) is TOO_LARGE, and ``out`` holds the low byte of
@@ -330,6 +340,7 @@ def to_latin1(w: torch.Tensor, length: int):
             torch.where(ok, length, err_pos))
 
 
+@trace.route
 def to_latin1_valid(w: torch.Tensor, length: int):
     """convert_valid_utf32_to_latin1: a narrowing store. (out uint8[N],
     out_len)."""

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..errors import error_code as ec
 
 from ..kernels import census as kcen
@@ -127,6 +128,7 @@ def _first_error_from(cls: dict, length: int):
     return err_pos, err_code
 
 
+@trace.route
 def validate_ascii_with_errors(b: torch.Tensor, length: int):
     """-> (err_code, err_pos): TOO_LARGE at the first in-range byte >= 0x80,
     else (0, length). One pass of kernels/validate.ascii_first_bad."""
@@ -136,6 +138,7 @@ def validate_ascii_with_errors(b: torch.Tensor, length: int):
             torch.where(ok, torch.full_like(pos, length), pos))
 
 
+@trace.route
 def validate_with_errors(b: torch.Tensor, length: int):
     """-> (err_code, err_pos); (0, length) on success. One pass of the
     first-event kernel (kernels/validate.utf8_first_event_len)."""
@@ -145,10 +148,12 @@ def validate_with_errors(b: torch.Tensor, length: int):
             torch.where(ok, torch.full_like(pos, length), pos))
 
 
+@trace.route
 def count_code_points(b: torch.Tensor, length: int) -> torch.Tensor:
     return kv.utf8_count(b, length)
 
 
+@trace.route
 def utf16_length(b: torch.Tensor, length: int) -> torch.Tensor:
     return kv.utf8_utf16_length(b, length)
 
@@ -157,7 +162,7 @@ def census_full(b: torch.Tensor, length: int):
     """(ascii, u2, u3, u4, has2, has4) as Python bools from ONE census
     pass plus one device sync. Each of ascii/u2/u3/u4 is an exact
     validity proof for its class (see simdutf_tpu/ops/utf8.census)."""
-    bits = int(kcen.census_bits(b, length))
+    bits = trace.sync("utf8.census", int, kcen.census_bits(b, length))
     pos = length > 0
     return (
         (bits & kcen.BIT_NONASCII) == 0,
@@ -256,6 +261,7 @@ def _general_utf16(b: torch.Tensor, length: int, big_endian: bool):
             torch.where(err_any, err_len, total))
 
 
+@trace.route
 def to_utf16(b: torch.Tensor, length: int, big_endian: bool):
     """Validating transcode, routed on a one-pass census: whole-buffer
     ASCII / uniform 2-, 3-, 4-byte input takes a fixed-rate branch (the
@@ -284,6 +290,7 @@ def to_utf16(b: torch.Tensor, length: int, big_endian: bool):
     )
 
 
+@trace.route
 def to_utf16_valid(b: torch.Tensor, length: int, big_endian: bool):
     """convert_valid_utf8_to_utf16*: assumes valid input. Returns
     (out uint16[N], out_len), census-routed like :func:`to_utf16`; all
@@ -354,6 +361,7 @@ def _utf32_general_parts(b: torch.Tensor, length: int):
     return err_pos, err_code, out, total, err_len
 
 
+@trace.route
 def to_utf32(b: torch.Tensor, length: int):
     """Validating UTF-8 -> UTF-32, routed on the one-pass census like
     :func:`to_utf16`: whole-buffer ASCII / uniform 2-, 3-, 4-byte input
@@ -387,6 +395,7 @@ def to_utf32(b: torch.Tensor, length: int):
                  general)
 
 
+@trace.route
 def to_utf32_valid(b: torch.Tensor, length: int):
     """convert_valid_utf8_to_utf32: assumes valid input. Returns
     (out int32[N], out_len), census-routed like :func:`to_utf32`."""
@@ -420,6 +429,7 @@ def _latin1_leads(bb: torch.Tensor, length: int):
     return lead, off, total, (out & 0xFF).to(torch.uint8)
 
 
+@trace.route
 def to_latin1(b: torch.Tensor, length: int):
     """UTF-8 -> Latin-1 with its own error lattice (simdutf_tpu/ops/utf8
     .to_latin1): a 2-byte sequence above 0xFF and every 3- or 4-byte lead
@@ -467,6 +477,7 @@ def to_latin1(b: torch.Tensor, length: int):
             torch.where(ok, total, count_before(off, err_pos)))
 
 
+@trace.route
 def to_latin1_valid(b: torch.Tensor, length: int):
     """convert_valid_utf8_to_latin1: valid Latin-1-range UTF-8 has only
     ASCII and 2-byte sequences, so this skips the error lattice. Returns

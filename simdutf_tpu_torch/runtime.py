@@ -23,6 +23,8 @@ import threading
 import numpy as np
 import torch
 
+from . import trace
+
 _tls = threading.local()
 _lock = threading.Lock()
 _tuned: bool | None = None
@@ -76,7 +78,8 @@ def _pinned(nbytes: int) -> tuple[torch.Tensor, torch.cuda.Event]:
         buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, pin_memory=True)
         entry = _tls.pinned = (buf, torch.cuda.Event())
     else:
-        entry[1].synchronize()  # the previous copy out of it has finished
+        # the previous copy out of it has finished
+        trace.sync("runtime.pinned", torch.cuda.Event.synchronize, entry[1])
     return entry
 
 

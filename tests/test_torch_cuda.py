@@ -1085,8 +1085,9 @@ def test_b64_compact_many_tiles_and_zero_tail(cuda):
 
 def test_single_pass_wrappers_launch_once(cuda):
     """compose16, compose32 and b64_compact: one kernel of their own a call
-    (the status reset is a memset inside the entry point, no torch fill)."""
-    from simdutf_tpu_torch.kernels import _build
+    (the status reset is a memset inside the entry point, no torch fill),
+    one launch by the port's own counter."""
+    from simdutf_tpu_torch import trace
 
     data = _mixed(5 * T16)
     x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda)
@@ -1100,15 +1101,107 @@ def test_single_pass_wrappers_launch_once(cuda):
     from torch.profiler import ProfilerActivity, profile
 
     for call in calls:
-        _build.reset_launches()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trace.reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             call()
             torch.cuda.synchronize()
         kernels = [e.key for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and "emset" not in e.key and "emcpy" not in e.key]
-        assert sum(_build.LAUNCHES.values()) == 1
+        assert sum(trace.snapshot()["launches"].values()) == 1
         assert len(kernels) <= 1, kernels  # the profiler may miss it, never add one
+
+
+# -- the port's spans and counters on the card ---------------------------------
+
+def _cell_entries(dev):
+    """The benchmark cells' entries on 1 MiB inputs staged as the port
+    stages them: (name, call, launches by C entry point, syncs)."""
+    from simdutf_tpu_torch import impl
+
+    def staged(data: bytes):
+        buf, n = impl._pad(np.frombuffer(data, np.uint8))
+        return impl.to_device(buf.copy(), n, dev)
+
+    mib = 1 << 20
+    x, n = staged(_mixed(mib))
+    a, na = staged(b"plain ASCII text, " * (mib // 18))
+    raw = np.random.default_rng(3).integers(0, 256, 3 * mib // 4, dtype=np.uint8).tobytes()
+    enc = pyb64.b64encode(raw)
+    mime = b"\r\n".join(enc[i:i + 76] for i in range(0, len(enc), 76))
+    c, nc = staged(mime)
+    return [("mixed", lambda: o8.to_utf16(x, n, False),
+             {"census_utf8": 1, "compose16": 1}, 1),
+            ("ascii", lambda: o8.to_utf16(a, na, False),
+             {"census_utf8": 1, "ascii_widen_utf16": 1}, 1),
+            ("decode", lambda: ob.decode_bulk_routed(c, nc, False, False),
+             {"b64_compact8": 1, "b64_pack": 1}, 0)]
+
+
+def _profiled(call, activities):
+    from torch.profiler import profile
+
+    from simdutf_tpu_torch import trace
+
+    trace.reset()
+    with profile(activities=activities) as prof:
+        call()
+        torch.cuda.synchronize()
+    return prof, trace.snapshot()
+
+
+def test_cell_entries_launch_and_sync_counts(cuda):
+    """Each benchmark cell's entry launches its two kernels and blocks the
+    host as many times as its route reads the device."""
+    from torch.profiler import ProfilerActivity
+
+    for name, call, launches, syncs in _cell_entries(cuda):
+        call()
+        _, snap = _profiled(call, [ProfilerActivity.CPU])
+        assert snap["launches"] == launches, name
+        assert snap["syncs"] == syncs, name
+
+
+def test_sync_counter_misses_no_sync(cuda):
+    """The port's ``syncs`` equals the synchronizing operations torch
+    reports for the same call under ``set_sync_debug_mode``."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity
+
+    for name, call, _, _ in _cell_entries(cuda):
+        call()
+        torch.cuda.synchronize()
+        caught = []
+
+        def watched():
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as got:
+                    warnings.simplefilter("always")
+                    call()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            caught.extend(w for w in got if "synchroniz" in str(w.message))
+
+        _, snap = _profiled(watched, [ProfilerActivity.CPU])
+        assert snap["syncs"] == len(caught), (name, [str(w.message) for w in caught])
+
+
+def test_program_spans_make_no_device_rows(cuda):
+    """The program's spans are host ranges only: the trace has them, and no
+    device row carries their names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    for name, call, _, _ in _cell_entries(cuda):
+        call()
+        prof, snap = _profiled(call, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        events = list(prof.profiler.kineto_results.events())
+        host = {e.name() for e in events if e.device_type() == DeviceType.CPU}
+        device = [e.name() for e in events if e.device_type() == DeviceType.CUDA]
+        assert set(snap["spans"]) <= host, name
+        assert device and not [d for d in device if d.startswith("simdutf.")], name
 
 
 # -- compose32 (#36-#37) as one look-back launch -----------------------------
