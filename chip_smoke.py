@@ -10,6 +10,9 @@
     python3 chip_smoke.py --compact-times [--root DIR]
                                  # the same for compose16, compose32,
                                  # b64_compact and their routed calls
+    python3 chip_smoke.py --census-times [--root DIR]
+                                 # the same for census_utf8 on 64 MiB of
+                                 # ASCII, mixed, é, 東 and 🙂 text
 
 Nine paths, each driven through the port's own api
 (``simdutf_tpu_torch.api`` on "cuda"): UTF-8 -> UTF-16LE/BE with UTF-8
@@ -2873,6 +2876,53 @@ def compact_times_phase(card: str, big: int = CORPUS_BYTES) -> dict:
     return out
 
 
+def census_times_phase(card: str, big: int = CORPUS_BYTES) -> dict:
+    """census_utf8 alone on the 64 MiB ASCII, mixed, é, 東 and 🙂 corpora:
+    ms per call by CUDA events (the median of two ``cuda_ms`` runs), its
+    device row from torch.profiler, its bound (the input read once), and,
+    where the tree's census counts them, the chunks that ran a positional
+    check. The bits must equal the plain census's. Only names the parent
+    tree also has, so one script times both trees in turns."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    import bench
+    from simdutf_tpu_torch import impl
+    from simdutf_tpu_torch.kernels import census as kcen
+
+    counted = "counted" in inspect.signature(kcen.census_bits).parameters
+    corpora = {"ascii": class_corpus("a", big), "mixed": bench.mixed_corpus(big),
+               "u2": class_corpus("é", big), "u3": class_corpus("東", big),
+               "u4": class_corpus("\U0001f642", big)}
+    out = {}
+    for name, data in corpora.items():
+        x, L = impl.to_device(*impl._pad(np.frombuffer(data, np.uint8)), "cuda")
+        torch.cuda.synchronize()
+        call = lambda x=x, L=L: kcen.census_bits(x, L)  # noqa: E731
+        check(int(call()) == int(kcen.census_bits_ref(x, L)), f"census_utf8 bits on {name}")
+        ms = statistics.median([cuda_ms(call), cuda_ms(call)])
+        _, rows = device_rows(call)
+        check(bool(rows), f"torch.profiler saw no device row of census_utf8 on {name}")
+        row = max((r for r in rows if "census" in r[2]), default=rows[0])
+        bound = L / PEAK_BYTES_PER_S * 1e3
+        out[name] = {"ms": ms, "device_us": row[0], "bound_ms": bound, "bytes": L,
+                     "rows": [[round(us, 3), count, key[:100]] for us, count, key in rows]}
+        text = (f"time census_utf8 on {name} ({L} B): {ms:.4f} ms by events, "
+                f"{row[0]:.2f} us on its row, bound {bound:.4f} ms "
+                f"({100 * bound / ms:.1f}% by events, {100 * bound / (row[0] / 1e3):.1f}% "
+                f"by the row)")
+        if counted:
+            checked = int(kcen.census_bits(x, L, counted=True)) >> 32
+            chunks = kcen.census_chunks(x, L)
+            out[name].update(checked_chunks=checked, chunks=chunks)
+            text += f", {checked} of {chunks} chunks checked ({100 * checked / chunks:.2f}%)"
+        log(f"{text} [{card}]")
+        del x
+    return out
+
+
 def timesp_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dict]:
     """ms of each pallas-tier kernel and of its plain version at its path's
     shapes, device-resident: the UTF-8 SWAR scan on the 64 MiB corpus (the
@@ -3049,10 +3099,13 @@ def main() -> int:
     parser.add_argument("--compact-times", action="store_true",
                         help="only build and time compose16, compose32, b64_compact and their "
                              "routed calls (compact_times_phase); print one JSON line")
+    parser.add_argument("--census-times", action="store_true",
+                        help="only build and time census_utf8 on five 64 MiB corpora "
+                             "(census_times_phase); print one JSON line")
     parser.add_argument("--root", default=None,
                         help="import simdutf_tpu_torch from this checkout (with "
-                             "--fixed-rate-times or --compact-times: a parent tree "
-                             "unpacked beside this one)")
+                             "--fixed-rate-times, --compact-times or --census-times: a "
+                             "parent tree unpacked beside this one)")
     args = parser.parse_args()
     import torch
 
@@ -3070,9 +3123,10 @@ def main() -> int:
         print(f"chip_smoke: run from a checkout of the repo ({exc})",
               file=sys.stderr)
         return 2
-    if args.fixed_rate_times or args.compact_times:
+    if args.fixed_rate_times or args.compact_times or args.census_times:
         what, phase = (("fixed_rate_times", fixed_rate_times_phase) if args.fixed_rate_times
-                       else ("compact_times", compact_times_phase))
+                       else ("compact_times", compact_times_phase) if args.compact_times
+                       else ("census_times", census_times_phase))
         try:
             name, card = device_phase()
             log(f"package: {os.path.dirname(simdutf_tpu_torch.__file__)}")

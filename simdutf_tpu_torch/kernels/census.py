@@ -7,12 +7,15 @@ and census16_bits (``_census16_kernel``). On a CUDA tensor
 they run :func:`census_bits_ref` / :func:`census16_bits_ref`.
 
 Both Hopper kernels' floor is HBM bytes, one streaming read of the
-in-range elements (16 bytes per thread per step), OR-reduced per warp
-into one atomic; census_utf8 is bound by its per-byte checks instead,
-census_utf16 runs near the copy rate (PERF.md). The TPU kernels' bitcast
-word geometry (mod-3 lane masks, unit parity as lane parity) is a TPU
-layout device; the port takes the positional classes from the flat
-position.
+in-range elements, OR-reduced per warp into one atomic. census_utf8 checks
+four bytes at a time on 32-bit words, and a warp skips the checks whose
+bits it already holds: after a warp's first chunks, text that no
+fixed-rate class admits needs only the presence tests, so the read is
+bound by bytes, not by checks. It also counts the 16-byte chunks that ran
+a positional check (:func:`census_bits` with ``counted=True``;
+:func:`read_bits` adds them to the trace's counts). census_utf16 runs near
+the copy rate (PERF.md). The positional classes come from the flat
+position, as lane masks of each word (mod 3 by the word's position).
 """
 
 from __future__ import annotations
@@ -63,17 +66,45 @@ def census_bits_ref(b: torch.Tensor, length: int) -> torch.Tensor:
     return bits
 
 
+def census_chunks(b: torch.Tensor, length: int) -> int:
+    """The 16-byte chunks the census reads in range: those of the buffer's
+    16-byte-aligned frame on a CUDA tensor (one more than
+    ``ceil(length / 16)`` where the base is not aligned and the bytes
+    straddle one more chunk), ``ceil(length / 16)`` on the CPU."""
+    lead = b.data_ptr() & 15 if b.is_cuda else 0
+    return (lead + length + 15) // 16
+
+
 @trace.kernel
-def census_bits(b: torch.Tensor, length: int) -> torch.Tensor:
+def census_bits(b: torch.Tensor, length: int, counted: bool = False) -> torch.Tensor:
     """OR-reduced violation/presence bits of the in-range bytes, as a 0-d
-    int32 tensor on ``b``'s device (see :func:`census_bits_ref`)."""
+    int32 tensor on ``b``'s device (see :func:`census_bits_ref`). With
+    ``counted``, a 0-d int64 tensor: the bits in its low 32 bits, and in
+    its high 32 the in-range chunks (:func:`census_chunks`) that ran a
+    positional check; the plain version checks every byte, so it reports
+    them all."""
     length = int(length)
     if _build.check_bytes(b, length) == "cpu":
-        return census_bits_ref(b, length)
-    out = torch.zeros(1, dtype=torch.int32, device=b.device)
+        bits = census_bits_ref(b, length)
+        if not counted:
+            return bits
+        return bits.to(torch.int64) | (census_chunks(b, length) << 32)
+    out = torch.zeros(2, dtype=torch.int32, device=b.device)  # bits, checked chunks
     _build.call("census_utf8", b.data_ptr(), b.shape[0], length,
                 out.data_ptr())
-    return out[0]
+    return out.view(torch.int64)[0] if counted else out[0]
+
+
+def read_bits(site: str, b: torch.Tensor, length: int) -> int:
+    """The census bits on the host, from one read of the bits and the
+    checked-chunk count as one int64 (``trace.sync`` at ``site``). While a
+    profiler records, adds the chunks checked and the chunks in range to
+    the trace's counts ``census.checked_chunks`` and ``census.chunks``."""
+    both = trace.sync(site, int, census_bits(b, length, counted=True))
+    if trace.recording():
+        trace.count("census.checked_chunks", both >> 32)
+        trace.count("census.chunks", census_chunks(b, length))
+    return both & 0xFFFFFFFF
 
 
 # UTF-16 census bits, value-for-value simdutf_tpu/kernels/census.py

@@ -45,7 +45,7 @@ def census(b: torch.Tensor, length: int):
     """(ascii, allhi) as Python bools from one census pass and one device
     sync: every in-range byte below 0x80; every one at or above 0x80, and
     at least one."""
-    bits = trace.sync("latin1.census", int, kcen.census_bits(b, length))
+    bits = kcen.read_bits("latin1.census", b, length)
     return ((bits & kcen.BIT_NONASCII) == 0,
             (bits & kcen.BIT_HASLO) == 0 and length > 0)
 

@@ -162,7 +162,7 @@ def census_full(b: torch.Tensor, length: int):
     """(ascii, u2, u3, u4, has2, has4) as Python bools from ONE census
     pass plus one device sync. Each of ascii/u2/u3/u4 is an exact
     validity proof for its class (see simdutf_tpu/ops/utf8.census)."""
-    bits = trace.sync("utf8.census", int, kcen.census_bits(b, length))
+    bits = kcen.read_bits("utf8.census", b, length)
     pos = length > 0
     return (
         (bits & kcen.BIT_NONASCII) == 0,

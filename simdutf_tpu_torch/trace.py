@@ -16,6 +16,10 @@ trace's own clock beside the device rows. Nothing else turns it on.
   inside a ``simdutf.sync.<site>`` span, and counts it in ``syncs``.
 * :func:`launch` counts one launch of a C entry point in
   ``launches[<entry>]`` (``kernels/_build.call`` makes every launch).
+* :func:`count` adds to a named counter of the program's own, in
+  ``counts[<name>]`` (the census's checked and in-range chunks).
+  :func:`recording` says whether a profiler records, for a site that
+  computes what it counts only then.
 
 The layers: ``glue`` (``impl.py``: staging, results back on the host),
 ``route`` (each ``ops`` function that ``impl.py`` calls), ``kernel`` (each
@@ -59,7 +63,7 @@ class _Thread:
     :func:`snapshot` merges the aggregates of this generation's
     threads)."""
 
-    __slots__ = ("on", "stack", "gen", "spans", "syncs", "launches")
+    __slots__ = ("on", "stack", "gen", "spans", "syncs", "launches", "counts")
 
     def __init__(self):
         self.on = False
@@ -68,6 +72,7 @@ class _Thread:
         self.spans: dict = {}  # name -> [count, total_ns, self_ns, {parent: count}]
         self.syncs = 0
         self.launches: dict = {}
+        self.counts: dict = {}
 
 
 def _recording() -> bool:
@@ -110,6 +115,7 @@ def _thread() -> _Thread:
             t.spans = {}
             t.syncs = 0
             t.launches = {}
+            t.counts = {}
             _threads.append(t)
     return t
 
@@ -225,6 +231,18 @@ def launch(entry: str) -> None:
     counts[entry] = counts.get(entry, 0) + 1
 
 
+def count(name: str, k: int) -> None:
+    """Add ``k`` to the counter ``name``."""
+    if not _recording():
+        return
+    counts = _thread().counts
+    counts[name] = counts.get(name, 0) + k
+
+
+#: whether the spans and counters record now (a profiler records)
+recording = _recording
+
+
 def reset() -> None:
     """Clear the aggregates now: for two profiled stretches with no call
     of the port between them that the profiler did not record."""
@@ -238,16 +256,19 @@ def snapshot() -> dict:
     """What was recorded since recording last began, over every thread, as
     plain data: ``{"spans": {name: {"count", "total_ns", "self_ns",
     "parents": {enclosing span name or None: count}}}, "syncs": int,
-    "launches": {entry: count}}``."""
+    "launches": {entry: count}, "counts": {name: int}}``."""
     spans: dict = {}
     syncs = 0
     launches: dict = {}
+    counts: dict = {}
     with _lock:
         threads = list(_threads)
     for t in threads:
         syncs += t.syncs
         for entry, k in list(t.launches.items()):
             launches[entry] = launches.get(entry, 0) + k
+        for name, k in list(t.counts.items()):
+            counts[name] = counts.get(name, 0) + k
         for name, (c, tot, self_ns, parents) in list(t.spans.items()):
             agg = spans.setdefault(name, {"count": 0, "total_ns": 0, "self_ns": 0,
                                           "parents": {}})
@@ -256,4 +277,4 @@ def snapshot() -> dict:
             agg["self_ns"] += self_ns
             for p, k in list(parents.items()):
                 agg["parents"][p] = agg["parents"].get(p, 0) + k
-    return {"spans": spans, "syncs": syncs, "launches": launches}
+    return {"spans": spans, "syncs": syncs, "launches": launches, "counts": counts}

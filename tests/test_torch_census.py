@@ -93,3 +93,16 @@ def test_census_rejects_non_uint8():
         tcen.census_bits(torch.zeros(16, dtype=torch.int32), 4)
     with pytest.raises(ValueError):
         tcen.census_bits(torch.zeros(16, dtype=torch.uint8), 17)
+
+
+@pytest.mark.parametrize("name", ["empty", "ascii", "u2_ragged", "u4", "mixed"])
+def test_census_counted_on_cpu(name):
+    """``counted=True`` gives the bits and the chunks checked: the plain
+    census checks every in-range chunk."""
+    data = CASES[name]
+    buf = torch.from_numpy(_buf(data, garbage=True))
+    both = tcen.census_bits(buf, len(data), counted=True)
+    chunks = (len(data) + 15) // 16
+    assert both.dtype == torch.int64 and both.dim() == 0
+    assert int(both) == int(tcen.census_bits(buf, len(data))) | chunks << 32
+    assert tcen.census_chunks(buf, len(data)) == chunks

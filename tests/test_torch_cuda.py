@@ -1354,3 +1354,159 @@ def test_narrow3_many_tiles_and_zero_tail(cuda, be):
         assert _same(got, ktr.uniform3_utf16_to_utf8_ref(x, L, be)), (L, bad)
         assert int(got[1]) == (bad is not None)
     torch.cuda.synchronize()
+
+
+# -- census_utf8: the word-parallel read and its skipped checks ----------------
+
+#: a warp's step (32 lanes x 4 chunks of 16 bytes), a block's (8 warps) and
+#: the most a grid-stride step covers (528 blocks)
+CEN_WARP, CEN_BLOCK = 32 * 4 * 16, 8 * 32 * 4 * 16
+CEN_GRID = 528 * CEN_BLOCK
+_PLAIN = "ab é 東 Жм ".encode()  # mixed text with no 4-byte sequence
+
+
+def _census_same(x, L):
+    """The kernel's bits equal the plain census's, counted or not; returns
+    (bits, checked chunks, chunks in range)."""
+    want = int(kcen.census_bits_ref(x, L))
+    assert int(kcen.census_bits(x, L)) == want
+    both = kcen.census_bits(x, L, counted=True)
+    assert both.dtype == torch.int64 and both.dim() == 0
+    bits, checked = int(both) & 0xFFFFFFFF, int(both) >> 32
+    assert bits == want
+    chunks = kcen.census_chunks(x, L)
+    assert 0 <= checked <= chunks
+    return bits, checked, chunks
+
+
+def _census_lanes(chunks: int) -> int:
+    """The lanes of the census's grid over ``chunks`` chunks: a warp that
+    has seen V2, V3 and V4 checks no more, so ASCII and mixed text check
+    at most a chunk a lane."""
+    return 256 * min(-(-chunks // (CEN_BLOCK // 16)), 528)
+
+
+def _on_card(data: bytes, cuda, tail: int = 64):
+    """``data`` then ``tail`` bytes of garbage, on the card."""
+    buf = np.random.default_rng(len(data)).integers(0, 256, len(data) + tail).astype(np.uint8)
+    buf[: len(data)] = np.frombuffer(data, np.uint8)
+    return torch.from_numpy(buf).to(cuda)
+
+
+@pytest.mark.parametrize("off", range(16))
+def test_census_on_every_base_alignment(cuda, off):
+    """Slices of one buffer that start 0-15 bytes past a 16-byte boundary,
+    at lengths of every residue mod 16, each with stored bytes past its
+    length and past its end."""
+    big = _on_card(_mixed(3 * CEN_BLOCK), cuda)
+    assert big.data_ptr() % 16 == 0
+    for L in [0, 1, 2, 3, 15, 16, 17] + list(range(CEN_WARP - 8, CEN_WARP + 9)) + [
+            2 * CEN_BLOCK + 5]:
+        for n in (L, L + 1, L + 7):
+            _census_same(big[off: off + n], L)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("L", [e + d for e in (16, 512, CEN_WARP, CEN_BLOCK, CEN_GRID)
+                               for d in (-1, 0, 1)] + [5000 + r for r in range(16)])
+def test_census_lengths_at_the_warp_block_and_grid_steps(cuda, L):
+    for text in (_mixed(L + 32), ("東".encode() * (L // 3 + 11))):
+        x = _on_card(text[: L + 5], cuda)[: L + 5]
+        _census_same(x, L)
+    torch.cuda.synchronize()
+
+
+def _violations(ch: str):
+    """(position, byte) pairs that break ``ch``'s uniform class: at each
+    residue mod 2, 3 and 4 deep in the text, and the last position."""
+    w = len(ch.encode())
+    base = 4 * CEN_BLOCK + 12 * 7
+    out = [(base + 12 * m + r, v) for m in (2, 3, 4) for r in range(m)
+           for v in (0x41, 0x80, 0xC1, 0xE0, 0xED, 0xF0, 0xF4, 0xBF)]
+    return out, w
+
+
+@pytest.mark.parametrize("ch", ["é", "東", "\U0001f642"])
+def test_census_uniform_class_with_one_violating_byte(cuda, ch):
+    """Uniform 2-, 3- and 4-byte text runs its class's check on every
+    chunk; one violating byte anywhere sets the class's bit, and the
+    untouched text is admitted with every chunk checked."""
+    violations, w = _violations(ch)
+    text = bytearray(ch.encode() * ((6 * CEN_BLOCK) // w))
+    L = len(text)
+    x = _on_card(bytes(text), cuda)
+    bits, checked, chunks = _census_same(x, L)
+    cls = {2: kcen.BIT_V2, 3: kcen.BIT_V3, 4: kcen.BIT_V4}[w]
+    assert bits & cls == 0 and checked == chunks
+    for p, v in violations + [(L - 1, 0x41), (L - 1, 0x80), (L - 1, 0xF4)]:
+        t = bytearray(text)
+        t[p] = v
+        x = _on_card(bytes(t), cuda)
+        got, checked, chunks = _census_same(x, L)
+        assert checked == chunks or got & cls
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("lead,nexts", [(0xE0, (0x9F, 0xA0)), (0xED, (0x9F, 0xA0)),
+                                        (0xF0, (0x8F, 0x90)), (0xF4, (0x8F, 0x90))])
+@pytest.mark.parametrize("at_end", [True, False])
+def test_census_lead_at_the_last_byte(cuda, lead, nexts, at_end):
+    """An E0, ED, F0 or F4 lead at length - 1 of uniform text, its first
+    continuation stored at ``length`` (read as stored) or past the
+    buffer's end (read as zero, though memory holds a continuation)."""
+    ch = "東" if lead < 0xF0 else "\U0001f642"
+    text = ch.encode() * (CEN_BLOCK // len(ch.encode()))
+    for off in (0, 1, 5):
+        for nxt in nexts:
+            data = text + bytes([lead, nxt, 0x80, 0x80])
+            L = len(text) + 1
+            big = _on_card(b"\x80" * off + data, cuda, tail=0)
+            x = big[off: off + (L if at_end else L + 3)]
+            bits, _, _ = _census_same(x, L)
+            cls = kcen.BIT_V3 if lead < 0xF0 else kcen.BIT_V4
+            if at_end:
+                assert bits & cls
+    torch.cuda.synchronize()
+
+
+def _late(case: str, size: int) -> tuple[bytes, int]:
+    """(text of at least ``size`` bytes whose only instance of a bit comes
+    in its last chunks, that bit)."""
+    if case == "e_acute_in_ascii":
+        d = bytearray(b"plain ASCII text " * (size // 17 + 1))
+        d[-1000:-998] = "é".encode()
+        return bytes(d), kcen.BIT_HAS2 | kcen.BIT_NONASCII
+    if case == "ascii_after_u2":
+        return "é".encode() * (size // 2) + b"a", kcen.BIT_V2 | kcen.BIT_HASLO
+    return _PLAIN * (size // len(_PLAIN) + 1) + "\U0001f642".encode(), kcen.BIT_HAS4
+
+
+@pytest.mark.parametrize("case", ["e_acute_in_ascii", "ascii_after_u2", "plain_then_4byte"])
+def test_census_finds_a_bit_after_every_warp_has_switched(cuda, case):
+    """8 MiB and more whose only instance of a bit comes late, after each
+    warp's first chunks: the warps that switched to the presence tests
+    still find it."""
+    data, bit = _late(case, 8 << 20)
+    x = _on_card(data, cuda)
+    bits, checked, chunks = _census_same(x, len(data))
+    assert bits & bit == bit
+    if case != "ascii_after_u2":
+        assert checked <= _census_lanes(chunks) < chunks, (checked, chunks)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("ch", ["a", "mixed", "é", "東", "\U0001f642"])
+def test_census_checked_chunks(cuda, ch):
+    """ASCII and mixed text run the positional checks only until each warp
+    holds V2, V3 and V4 (a chunk a lane: a quarter of 8 MiB, where each
+    lane reads four); text of one fixed-rate class runs them on every
+    chunk."""
+    size = 8 << 20
+    data = _mixed(size) if ch == "mixed" else ch.encode() * (size // len(ch.encode()))
+    x = _on_card(data, cuda)
+    _, checked, chunks = _census_same(x, len(data))
+    if ch in ("a", "mixed"):
+        assert 0 < checked <= _census_lanes(chunks) < chunks, (checked, chunks)
+    else:
+        assert checked == chunks
+    torch.cuda.synchronize()

@@ -53,8 +53,9 @@ def test_off_records_nothing(monkeypatch):
     o8.to_utf16(x, n, False)
     assert trace.sync("s", int, torch.tensor(3)) == 3
     trace.launch("census_utf8")
+    trace.count("census.chunks", 4)
     assert made == []
-    assert trace.snapshot() == {"spans": {}, "syncs": 0, "launches": {}}
+    assert trace.snapshot() == {"spans": {}, "syncs": 0, "launches": {}, "counts": {}}
 
 
 def test_route_spans_nest_by_layer():
@@ -116,7 +117,7 @@ def test_second_session_starts_from_zero():
     assert second["spans"]["simdutf.route.utf8.to_utf16"]["count"] == 1
     assert second["syncs"] == 1
     trace.reset()  # or an explicit reset between two profiled stretches
-    assert trace.snapshot() == {"spans": {}, "syncs": 0, "launches": {}}
+    assert trace.snapshot() == {"spans": {}, "syncs": 0, "launches": {}, "counts": {}}
     _, third, _ = profiled(call)
     assert third["spans"]["simdutf.route.utf8.to_utf16"]["count"] == 1
 
@@ -188,6 +189,75 @@ def test_build_call_counts_every_launch(monkeypatch):
     _, snap, _ = profiled(lambda: [_build.call("compose8_count"), _build.call("compose8_emit"),
                                    _build.call("census_utf8")])
     assert snap["launches"] == {"compose8_count": 1, "compose8_emit": 1, "census_utf8": 1}
+
+
+def test_count_records_only_under_a_profiler():
+    """``trace.count`` adds to ``counts`` while a profiler records, and
+    leaves the syncs and launches as they are."""
+    trace.count("x", 5)  # no profiler: nothing
+    _, snap, _ = profiled(lambda: [trace.count("x", 2), trace.count("x", 3),
+                                   trace.count("y", 1)])
+    assert snap["counts"] == {"x": 5, "y": 1}
+    assert snap["syncs"] == 0 and snap["launches"] == {}
+    trace.count("x", 7)  # after the profiler: nothing
+    assert trace.snapshot()["counts"] == {"x": 5, "y": 1}
+
+
+def test_count_off_is_one_flag_check(monkeypatch):
+    """With no profiler, ``trace.count`` reads the profiler's flag once and
+    touches no thread state."""
+    trace.span("simdutf.x")  # a call with no profiler ends this thread's record
+    checks = []
+    monkeypatch.setattr(trace, "_enabled", lambda: checks.append(1) or False)
+    monkeypatch.setattr(trace, "_thread", lambda: pytest.fail("thread state touched"))
+    trace.count("census.chunks", 3)
+    assert checks == [1]
+    assert trace.recording() is False
+    assert checks == [1, 1]
+
+
+def test_counts_sum_across_threads(monkeypatch):
+    """``snapshot()["counts"]`` sums each recording thread's counts."""
+    local = threading.local()
+    monkeypatch.setattr(trace, "_enabled", lambda: getattr(local, "on", False))
+
+    def record(k):
+        local.on = True
+        trace.count("census.chunks", k)
+        trace.count("census.checked_chunks", 1)
+        local.on = False
+        trace.count("census.chunks", 100)  # off again: not counted
+
+    trace.reset()
+    local.on = True
+    trace.count("census.chunks", 2)
+    t = threading.Thread(target=record, args=(5,))
+    t.start()
+    t.join()
+    snap = trace.snapshot()
+    local.on = False
+    trace.count("census.chunks", 100)
+    assert snap["counts"] == {"census.chunks": 7, "census.checked_chunks": 1}
+    assert snap["syncs"] == 0 and snap["launches"] == {}
+
+
+@pytest.mark.parametrize("route,data,site", [
+    ("utf8", B8, "utf8.census"), ("latin1", L1, "latin1.census")])
+def test_census_counts_its_chunks(route, data, site):
+    """A census-routed call counts the census's checked and in-range
+    chunks in its one read: on the CPU the plain census checks them all."""
+    import importlib
+
+    mod = importlib.import_module(f"simdutf_tpu_torch.ops.{route}")
+    x, n = staged(data)
+    call = (lambda: mod.to_utf16(x, n, False)) if route == "utf8" else (  # noqa: E731
+        lambda: mod.to_utf8(x, n))
+    call()
+    _, snap, _ = profiled(call)
+    chunks = (len(data) + 15) // 16
+    assert snap["counts"] == {"census.checked_chunks": chunks, "census.chunks": chunks}
+    assert snap["syncs"] == 1
+    assert snap["spans"][f"simdutf.sync.{site}"]["count"] == 1
 
 
 #: each ops function that impl.py calls, and a TorchImplementation call that
