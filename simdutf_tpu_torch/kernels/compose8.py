@@ -85,6 +85,7 @@ def to_utf8_compose(w: torch.Tensor, length: int, be: bool,
     n = w.shape[0]
     dev = w.device
     out = torch.zeros(3 * n, dtype=torch.uint8, device=dev)
+    trace.count("compose.fill_bytes", out.nbytes)
     nt = -(-length // TILE)
     if nt == 0:  # nothing in range: nothing to launch
         z = torch.zeros((), dtype=torch.int64, device=dev)

@@ -83,6 +83,7 @@ def u32_to_utf8_compose(w: torch.Tensor, length: int):
         return u32_to_utf8_compose_ref(w, length)
     n = w.shape[0]
     out = torch.zeros(4 * n, dtype=torch.uint8, device=w.device)
+    trace.count("compose.fill_bytes", out.nbytes)
     nt = -(-length // TILE)
     if nt == 0:
         return _none_in_range(out)
@@ -120,6 +121,7 @@ def u16_to_utf32_compose(w: torch.Tensor, length: int, be: bool):
         return u16_to_utf32_compose_ref(w, length, be)
     n = w.shape[0]
     out = torch.zeros(n, dtype=torch.int32, device=w.device)
+    trace.count("compose.fill_bytes", out.nbytes)
     nt = -(-length // TILE)
     if nt == 0:
         return _none_in_range(out)
@@ -158,6 +160,7 @@ def u32_to_utf16_compose(w: torch.Tensor, length: int, be: bool):
     n = w.shape[0]
     out = torch.zeros(2 * n, dtype=torch.int16, device=w.device)
     out = out.view(torch.uint16)
+    trace.count("compose.fill_bytes", out.nbytes)
     nt = -(-length // TILE)
     if nt == 0:
         return _none_in_range(out)
@@ -187,6 +190,7 @@ def latin1_to_utf8_compose(b: torch.Tensor, length: int):
         return latin1_to_utf8_compose_ref(b, length)
     n = b.shape[0]
     out = torch.zeros(2 * n, dtype=torch.uint8, device=b.device)
+    trace.count("compose.fill_bytes", out.nbytes)
     nt = -(-length // TILE)
     if nt == 0:
         return out, torch.zeros((), dtype=torch.int64, device=b.device)

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
+
 #: sentinel for "no error" positions; exceeds any buffer index (the JAX
 #: package's value, so positions compare equal across packages).
 BIG = 2**31 - 1
@@ -100,13 +102,16 @@ def route(branches, default):
     return default()
 
 
+@trace.spanned(trace.PREFIX + "passglue.tile_glue")
 def tile_glue(counts: torch.Tensor, keys: torch.Tensor, prefix: torch.Tensor):
     """The glue between a compose kernel's count and emit passes, on the
     per-tile vectors (the JAX butterflies' own, as torch ops): each
     tile's output count, least event key ``pos << 8 | code`` (BIG << 8
     when none) and output before that event. Tile events are disjoint and
     increasing, so the least key is the first error, and the reporting
-    tile's offset plus its prefix is the output before it. Returns
+    tile's offset plus its prefix is the output before it. A layer of its
+    own in the trace (span ``simdutf.passglue.tile_glue``), inside the
+    kernel wrapper's span. Returns
     (off, total, err_any, err_pos, err_code, err_len, out_len), ``off``
     the exclusive per-tile offsets, the rest 0-d int64 tensors (err_any
     bool); ``out_len`` is err_len on error, else total."""

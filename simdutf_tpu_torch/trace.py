@@ -17,14 +17,18 @@ trace's own clock beside the device rows. Nothing else turns it on.
 * :func:`launch` counts one launch of a C entry point in
   ``launches[<entry>]`` (``kernels/_build.call`` makes every launch).
 * :func:`count` adds to a named counter of the program's own, in
-  ``counts[<name>]`` (the census's checked and in-range chunks).
+  ``counts[<name>]`` (the census's checked and in-range chunks; the
+  bytes a compose wrapper zero-fills before its emit pass,
+  ``compose.fill_bytes``).
   :func:`recording` says whether a profiler records, for a site that
   computes what it counts only then.
 
 The layers: ``glue`` (``impl.py``: staging, results back on the host),
 ``route`` (each ``ops`` function that ``impl.py`` calls), ``kernel`` (each
 kernel wrapper that launches a C entry point; on the CPU it runs the plain
-version, inside the same span), ``sync``.
+version, inside the same span), ``passglue`` (``ops/common.tile_glue``:
+the torch ops between a two-pass kernel's count and emit passes, inside
+its wrapper's span), ``sync``.
 
 :func:`snapshot` returns what was recorded since recording last began:
 the aggregates are cleared at the first span or count seen while a

@@ -1119,12 +1119,13 @@ def _cell_entries(dev):
     stages them: (name, call, launches by C entry point, syncs)."""
     from simdutf_tpu_torch import impl
 
-    def staged(data: bytes):
-        buf, n = impl._pad(np.frombuffer(data, np.uint8))
+    def staged(data: bytes, dtype=np.uint8):
+        buf, n = impl._pad(np.frombuffer(data, dtype))
         return impl.to_device(buf.copy(), n, dev)
 
     mib = 1 << 20
     x, n = staged(_mixed(mib))
+    u, nu = staged(_mixed(mib).decode().encode("utf-16-le"), np.uint16)
     a, na = staged(b"plain ASCII text, " * (mib // 18))
     raw = np.random.default_rng(3).integers(0, 256, 3 * mib // 4, dtype=np.uint8).tobytes()
     enc = pyb64.b64encode(raw)
@@ -1135,7 +1136,9 @@ def _cell_entries(dev):
             ("ascii", lambda: o8.to_utf16(a, na, False),
              {"census_utf8": 1, "ascii_widen_utf16": 1}, 1),
             ("decode", lambda: ob.decode_bulk_routed(c, nc, False, False),
-             {"b64_compact8": 1, "b64_pack": 1}, 0)]
+             {"b64_compact8": 1, "b64_pack": 1}, 0),
+            ("utf16", lambda: o16.to_utf8(u, nu, False),
+             {"census_utf16": 1, "compose8_count": 1, "compose8_emit": 1}, 1)]
 
 
 def _profiled(call, activities):
@@ -1151,8 +1154,9 @@ def _profiled(call, activities):
 
 
 def test_cell_entries_launch_and_sync_counts(cuda):
-    """Each benchmark cell's entry launches its two kernels and blocks the
-    host as many times as its route reads the device."""
+    """Each benchmark cell's entry launches its kernels (two, or three
+    where compose8 makes two passes) and blocks the host as many times as
+    its route reads the device."""
     from torch.profiler import ProfilerActivity
 
     for name, call, launches, syncs in _cell_entries(cuda):
@@ -1160,6 +1164,21 @@ def test_cell_entries_launch_and_sync_counts(cuda):
         _, snap = _profiled(call, [ProfilerActivity.CPU])
         assert snap["launches"] == launches, name
         assert snap["syncs"] == syncs, name
+
+
+def test_utf16_cell_entry_counts_its_fill_and_glue(cuda):
+    """The UTF-16 -> UTF-8 cell's entry zero-fills 3N bytes before
+    compose8's emit pass, counted once a call, and glues the passes inside
+    the compose8 wrapper's span."""
+    from torch.profiler import ProfilerActivity
+
+    name, call, _, _ = _cell_entries(cuda)[3]
+    assert name == "utf16"
+    out = call()[2]
+    _, snap = _profiled(call, [ProfilerActivity.CPU])
+    assert snap["counts"] == {"compose.fill_bytes": out.numel()}
+    assert snap["spans"]["simdutf.passglue.tile_glue"]["parents"] == {
+        "simdutf.kernel.compose8.to_utf8_compose": 1}
 
 
 def test_sync_counter_misses_no_sync(cuda):
