@@ -153,7 +153,8 @@ MIB = 1 << 20
 CORPUS_BYTES = 64 * MIB - 4096  # bench.py's flagship size (bucket = 64 MiB)
 SEED = 20261016
 #: the kernels of each path, named by their C entry point; a kernel that
-#: launches more than one is named by its key in ENTRIES
+#: launches more than one, or one of another name, is named by its key in
+#: ENTRIES
 PASSES = ("census_utf8", "utf8_first_event", "utf8_count", "compose16")
 PASSES16 = ("census_utf16", "utf16_first_bad", "utf16_count",
             "utf16_to_utf8_compose")
@@ -184,8 +185,8 @@ PASSEST32 = tuple(k for k, _ in FIXED8TO32 + FIXED32TO8 + FIXED16TO32 + FIXED32T
 PASSESP = ("utf8_swar_first_bad_word", "ascii_swar_first_bad_word",
            "utf16_swar_first_bad_word", "clean_decode", "row_compact",
            "lane_shapecast_probe")
-#: the C entry points of each kernel that launches more than one
-ENTRIES = {"utf16_to_utf8_compose": ("compose8_count", "compose8_emit"),
+#: the C entry points of each kernel named otherwise
+ENTRIES = {"utf16_to_utf8_compose": ("compose8",),
            "utf32_to_utf8_compose": ("composex_count", "composex_emit"),
            "utf16_to_utf32_compose": ("u16_to_u32_count", "u16_to_u32_emit"),
            "utf32_to_utf16_compose": ("u32_to_u16_count", "u32_to_u16_emit"),
@@ -296,8 +297,8 @@ KERNELS = {  # name -> (source, Pallas kernel replaced, also replaced)
                              "simdutf_tpu/kernels/validate.py:209", []),
 }
 #: headers a kernel's source includes that hold part of its design: the
-#: single-pass look-back scan that compose16, compose32 and b64_compact
-#: share, the tile pieces of the two UTF-8 look-back kernels (the fast
+#: single-pass look-back scan that compose16, compose32, compose8 and
+#: b64_compact share, the tile pieces of the two UTF-8 look-back kernels (the fast
 #: check, the window, the exact triple, the decode), and the bulk-copy
 #: tile ring of the three tiled fixed-rate kernels
 _UTF8_LOOKBACK = ["simdutf_tpu_torch/csrc/utf8_tile.cuh", "simdutf_tpu_torch/csrc/lookback.cuh",
@@ -305,6 +306,8 @@ _UTF8_LOOKBACK = ["simdutf_tpu_torch/csrc/utf8_tile.cuh", "simdutf_tpu_torch/csr
 HEADERS = {"compose16": _UTF8_LOOKBACK,
            "compose32": _UTF8_LOOKBACK,
            "b64_compact8": ["simdutf_tpu_torch/csrc/lookback.cuh"],
+           "utf16_to_utf8_compose": ["simdutf_tpu_torch/csrc/lookback.cuh",
+                                     "simdutf_tpu_torch/csrc/utf16.cuh"],
            "uniform3_utf16_to_utf8": ["simdutf_tpu_torch/csrc/bulk.cuh"],
            "latin1_widen_utf32": ["simdutf_tpu_torch/csrc/bulk.cuh"],
            "bmp_widen_utf32": ["simdutf_tpu_torch/csrc/bulk.cuh"]}

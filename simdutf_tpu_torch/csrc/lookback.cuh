@@ -1,10 +1,12 @@
 // Single-pass tile scan with decoupled look-back, shared by the one-launch
-// compaction kernels (compose16.cu's UTF-8 -> UTF-16 and base64.cu's
-// b64_compact). It takes the place of their count pass, the torch glue of
-// ops/common.tile_glue and their emit pass: each tile reduces its own
-// aggregate, publishes it, folds its predecessors' published values into
-// its exclusive prefix (its output offset and whether the first error lies
-// before it), and writes its output in the same launch.
+// compaction kernels (compose16.cu's UTF-8 -> UTF-16, compose32.cu's
+// UTF-8 -> UTF-32, base64.cu's b64_compact and, on the wide slots at the
+// end of this header, compose8.cu's UTF-16 -> UTF-8). It takes the place
+// of their count pass, the torch glue of ops/common.tile_glue and their
+// emit pass: each tile reduces its own aggregate, publishes it, folds its
+// predecessors' published values into its exclusive prefix (its output
+// offset and whether the first error lies before it), and writes its
+// output in the same launch.
 //
 // The aggregate is tile_glue's triple (count, least event key
 // pos << 8 | code, count before that key), `before` being `count` when the
@@ -275,6 +277,174 @@ inline int resident_blocks(K kernel, int threads, int smem = 0) {
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   const int g = sms * (per_sm > 0 ? per_sm : 1);
   return g < 1 ? 1 : g;
+}
+
+
+// ---- Wide slots: the same scan with 64-bit counts (compose8.cu) -----------
+//
+// UTF-16 -> UTF-8 writes up to 4 bytes a unit, so the output count of a
+// buffer of up to 2^31 units needs 33 bits, past the 32-bit `count` of a
+// Slot. A wide slot is three 64-bit words, count | 2^63, before | 2^63 and
+// key | 2^63, each written once from zero and each single-copy atomic; a
+// reader takes the slot as published only when all three ready bits are
+// set, so the argument above holds word for word. The counter and the two
+// slot arrays fill the same 16 + 48 nt bytes as a Lookback's scratch (no
+// extra words), all of which the reset clears.
+
+struct Wide {
+  long long count;
+  long long before;  // count before `key`, or `count` when key == NO_EVENT
+  unsigned long long key;
+};
+
+__device__ __forceinline__ Wide wide(long long count, long long before,
+                                     unsigned long long key) {
+  Wide r;
+  r.count = count;
+  r.before = before;
+  r.key = key;
+  return r;
+}
+
+// a is the earlier of two adjacent runs of tiles
+__device__ __forceinline__ Wide combine(const Wide& a, const Wide& b) {
+  return wide(a.count + b.count, a.key < b.key ? a.before : a.count + b.before,
+              a.key < b.key ? a.key : b.key);
+}
+
+struct alignas(8) WideSlot {
+  unsigned long long w[3];  // count, before, key; each | 2^63 once published
+};
+
+constexpr unsigned long long READY = 1ull << 63;
+
+__device__ __forceinline__ void publish(WideSlot* s, const Wide& v) {
+  st_relaxed(&s->w[0], (unsigned long long)v.count | READY);
+  st_relaxed(&s->w[1], (unsigned long long)v.before | READY);
+  st_relaxed(&s->w[2], v.key | READY);
+}
+
+// loads wide slot s; true (and its value) when all three words are published
+__device__ __forceinline__ bool peek(const WideSlot* s, Wide* v) {
+  const unsigned long long c = ld_relaxed(&s->w[0]), b = ld_relaxed(&s->w[1]),
+                           k = ld_relaxed(&s->w[2]);
+  *v = wide((long long)(c & ~READY), (long long)(b & ~READY), k & ~READY);
+  return (c & b & k & READY) != 0;
+}
+
+__device__ __forceinline__ Wide shfl_down(const Wide& v, int d) {
+  return wide(__shfl_down_sync(FULL, v.count, d), __shfl_down_sync(FULL, v.before, d),
+              __shfl_down_sync(FULL, v.key, d));
+}
+
+__device__ __forceinline__ Wide shfl0(const Wide& v) {
+  return wide(__shfl_sync(FULL, v.count, 0), __shfl_sync(FULL, v.before, 0),
+              __shfl_sync(FULL, v.key, 0));
+}
+
+//   [0, 16)              the tile counter (and padding)
+//   [16, 16 + 24 nt)     the aggregate slots
+//   [16 + 24 nt, + 24 nt) the inclusive slots
+struct WideLookback {
+  unsigned* counter;
+  WideSlot* agg;
+  WideSlot* incl;
+};
+
+inline long long wide_lookback_bytes(int nt) { return 16 + 48ll * nt; }
+
+inline WideLookback wide_lookback_carve(void* scratch, int nt) {
+  char* base = static_cast<char*>(scratch);
+  WideLookback lb;
+  lb.counter = reinterpret_cast<unsigned*>(base);
+  lb.agg = reinterpret_cast<WideSlot*>(base + 16);
+  lb.incl = reinterpret_cast<WideSlot*>(base + 16 + 24ll * nt);
+  return lb;
+}
+
+// Clears the counter and both slot arrays on `stream`; returns the cudaError_t.
+inline int wide_lookback_reset(void* scratch, int nt, cudaStream_t stream) {
+  return (int)cudaMemsetAsync(scratch, 0, (size_t)wide_lookback_bytes(nt), stream);
+}
+
+// Thread 0: publish tile t's aggregate (tile 0's is also its inclusive value).
+__device__ __forceinline__ void publish_aggregate(const WideLookback& lb, int t,
+                                                  const Wide& agg) {
+  if (t == 0) publish(lb.incl, agg);
+  publish(lb.agg + t, agg);
+}
+
+// lookback_prefix on wide slots, over windows of K x 32 tiles: the
+// exclusive prefix of tile t > 0, computed by one whole warp (every lane
+// gets it). Lane L looks at tiles j - K L - k, k = 0..K-1 (all their slots
+// loaded at once), and folds its group from its latest tile back to its
+// latest inclusive value. The window is folded once every lane up to the
+// nearest inclusive value holds its group; windows step back until one
+// holds an inclusive value (tiles before 0 count as an inclusive identity).
+template <int K>
+__device__ __forceinline__ Wide lookback_prefix(const WideLookback& lb, int t) {
+  const int lane = threadIdx.x & 31;
+  Wide acc = wide(0, 0, NO_EVENT);
+  for (int j = t - 1;; j -= 32 * K) {
+    Wide g = wide(0, 0, NO_EVENT);
+    bool inc = false, ready = false;
+    for (int ns = 32;;) {
+      if (!ready) {
+        Wide vi[K], va[K];
+        bool pi[K], pa[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int i = j - K * lane - k;
+          pi[k] = i >= 0 && peek(lb.incl + i, &vi[k]);
+          pa[k] = i >= 0 && peek(lb.agg + i, &va[k]);
+        }
+        g = wide(0, 0, NO_EVENT);
+        inc = false;
+        ready = true;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          if (inc || !ready) continue;
+          if (j - K * lane - k < 0) {
+            inc = true;
+          } else if (pi[k]) {
+            g = combine(vi[k], g);
+            inc = true;
+          } else if (pa[k]) {
+            g = combine(va[k], g);
+          } else {
+            ready = false;
+          }
+        }
+      }
+      const unsigned incl = __ballot_sync(FULL, inc && ready);
+      const unsigned need = incl ? (2u << (__ffs(incl) - 1)) - 1 : FULL;
+      if ((__ballot_sync(FULL, ready) & need) == need) break;
+      backoff(&ns);
+    }
+    const unsigned incl = __ballot_sync(FULL, inc && ready);
+    const int stop = __ffs(incl) - 1;  // -1: no inclusive value in the window
+    if (incl && lane > stop) g = wide(0, 0, NO_EVENT);
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const Wide o = shfl_down(g, d);
+      if (lane + d < 32) g = combine(o, g);
+    }
+    acc = combine(shfl0(g), acc);
+    if (incl) return acc;
+  }
+}
+
+// Thread 0 waits for tile i's inclusive value; every thread of the block
+// gets it (through `s`).
+__device__ __forceinline__ Wide block_wait_inclusive(const WideLookback& lb, int i,
+                                                     Wide* s) {
+  if (threadIdx.x == 0) {
+    Wide v;
+    for (int ns = 32; !peek(lb.incl + i, &v);) backoff(&ns);
+    *s = v;
+  }
+  __syncthreads();
+  return *s;
 }
 
 }  // namespace su

@@ -49,8 +49,7 @@ SIGNATURES = {
     "utf16_first_bad": (_P, _I64, _I32, _P, _P),
     "utf16_count": (_P, _I64, _I32, _I32, _P, _P),
     "utf16_to_well_formed": (_P, _I64, _I64, _I32, _P, _P),
-    "compose8_count": (_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P),
-    "compose8_emit": (_P, _I64, _I32, _I32, _I32, _P, _P, _I64, _P, _P),
+    "compose8": (_P, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P),
     "b64_compact8": (_P, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _P),
     "b64_compact16": (_P, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _P),
     "b64_pack": (_P, _I64, _P, _P),

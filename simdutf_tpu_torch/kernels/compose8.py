@@ -2,18 +2,20 @@
 
 Port of simdutf_tpu/kernels/butterfly16.to_utf8_compose (Pallas
 ``_phase_b16_kernel`` + ``_phase_c16_kernel``) with the same contract, but
-not the same algorithm: on a CUDA tensor :func:`to_utf8_compose` launches
-the count pass and the emit pass of csrc/compose8.cu, with the small glue
-that the JAX to_utf8_compose runs between its two kernels, as torch ops on
-the per-tile vectors; on a CPU tensor it runs :func:`to_utf8_compose_ref`.
+not the same algorithm: on a CUDA tensor :func:`to_utf8_compose` makes one
+launch of csrc/compose8.cu, a single pass with a decoupled look-back scan
+across tiles (csrc/lookback.cuh, on its wide slots) that also writes the
+zeros past out_len and the five scalars; on a CPU tensor it runs
+:func:`to_utf8_compose_ref`.
 
-The traffic floor is HBM bytes (two reads of the units, one write of the
+The traffic floor is HBM bytes (one read of the units, one write of the
 output bytes). The TPU engine compacts four candidate byte planes per
 tile with roll/select butterflies because scatters were slow on that
 chip; here a block-wide scan gives every unit its output slot, the bytes
-are staged in shared memory, and each tile writes them as contiguous
-runs. Tiles are 2048 units (256 threads x 8 units), with no alignment
-demand on the buffer size: the ragged last tile is masked.
+are staged in shared memory, and each tile stores them as aligned 16-byte
+chunks at the offset its look-back finds. Tiles are 8192 units (four rows
+of 256 threads x 8 units), with no alignment demand on the buffer size:
+the ragged last tile is masked.
 
 In the validating mode ``total`` follows the butterfly's accounting:
 every in-range surrogate emits 2 bytes, paired or not, so ``total`` equals
@@ -30,9 +32,11 @@ import torch
 
 from . import _build
 from .. import trace
-from ..ops.common import BIG, tile_glue
+from ..errors import error_code as ec
+from .compose16 import tile_triples
+from ..ops.common import BIG, positions, shift_left
 
-TILE = 2048  # units per block; = TILE in csrc/compose8.cu
+TILE = 8192  # units per tile; = TILE in csrc/compose8.cu
 _MODES = {"validate": 0, "valid": 1}
 
 
@@ -82,23 +86,69 @@ def to_utf8_compose(w: torch.Tensor, length: int, be: bool,
     valid = _mode(mode)
     if _build.check_units(w, length) == "cpu":
         return to_utf8_compose_ref(w, length, be, mode)
+    if length == 0:  # nothing in range: nothing to launch
+        z = torch.zeros((), dtype=torch.int64, device=w.device)
+        out = torch.zeros(3 * w.shape[0], dtype=torch.uint8, device=w.device)
+        trace.count("compose.fill_bytes", out.nbytes)
+        return out, z, z != 0, z + BIG, z, z
+    out, res, err_any, _, _ = _launch(w, length, be, valid)
+    return out, res[0], err_any[0], res[1], res[2], res[3]
+
+
+def _tiles(length: int) -> int:
+    """Tiles of a call: only in-range units emit bytes."""
+    return -(-length // TILE)
+
+
+def _launch(w: torch.Tensor, length: int, be: bool, valid: int):
+    """One launch on a CUDA tensor with ``length >= 1``: (out, res int64[4]
+    = total, err_pos, err_code, err_len; err_any bool[1]; scratch, nt)."""
     n = w.shape[0]
     dev = w.device
-    out = torch.zeros(3 * n, dtype=torch.uint8, device=dev)
-    trace.count("compose.fill_bytes", out.nbytes)
-    nt = -(-length // TILE)
-    if nt == 0:  # nothing in range: nothing to launch
-        z = torch.zeros((), dtype=torch.int64, device=dev)
-        return out, z, z != 0, z + BIG, z, z
-    counts = torch.empty(nt, dtype=torch.int32, device=dev)
-    keys = torch.empty(nt, dtype=torch.int64, device=dev)
-    prefix = torch.empty(nt, dtype=torch.int32, device=dev)
-    _build.call("compose8_count", w.data_ptr(), length, int(be), valid, nt,
-                counts.data_ptr(), keys.data_ptr(), prefix.data_ptr())
+    nt = _tiles(length)
+    out = torch.empty(3 * n, dtype=torch.uint8, device=dev)
+    res = torch.empty(4, dtype=torch.int64, device=dev)
+    err_any = torch.empty(1, dtype=torch.bool, device=dev)
+    scratch = _build.lookback_scratch(nt, dev)
+    _build.call("compose8", w.data_ptr(), n, length, int(be), valid, nt,
+                scratch.data_ptr(), out.data_ptr(), res.data_ptr(), err_any.data_ptr())
+    return out, res, err_any, scratch, nt
 
-    off, total, err_any, err_pos, err_code, err_len, out_len = tile_glue(
-        counts, keys, prefix)
 
-    _build.call("compose8_emit", w.data_ptr(), length, int(be), valid, nt,
-                off.data_ptr(), out_len.data_ptr(), 3 * n, out.data_ptr())
-    return out, total, err_any, err_pos, err_code, err_len
+def tile_aggregates_ref(w: torch.Tensor, length: int, be: bool,
+                        mode: str = "validate"):
+    """Plain per-tile (bytes, least event key pos << 8 | SURROGATE, bytes
+    before that key; BIG << 8 and the tile's bytes when it has no event)
+    of the tiles of a call, each an int64 tensor, in either mode's
+    accounting (the valid-only mode has no events)."""
+    from ..ops import utf16 as o16
+
+    n = w.shape[0]
+    x = o16.native(w, length, be)
+    idx = positions(n, w.device)
+    in_r = idx < length
+    if _mode(mode):
+        hi = (x & 0xFC00) == 0xD800
+        cp = torch.where(hi, ((x - 0xD800) << 10) + (shift_left(x, 1) - 0xDC00) + 0x10000, x)
+        width = (in_r & ((x & 0xFC00) != 0xDC00)) * (
+            1 + (cp > 0x7F).to(torch.int64) + (cp > 0x7FF) + (cp > 0xFFFF))
+        key = torch.full((n,), BIG << 8, dtype=torch.int64, device=w.device)
+    else:
+        sur = (x & 0xF800) == 0xD800
+        width = in_r * (1 + (x >= 0x80).to(torch.int64) + ((x >= 0x800) & ~sur))
+        key = torch.where(o16.lone_surrogates(x, length), (idx << 8) | int(ec.SURROGATE),
+                          BIG << 8)
+    return tile_triples(width, key, _tiles(length), TILE)
+
+
+def _tile_aggregates(w: torch.Tensor, length: int, be: bool, mode: str = "validate"):
+    """The per-tile aggregates the kernel publishes for its look-back, as
+    (count, key, before) int64 tensors, for tests: on a CUDA tensor read
+    from the launch's wide slots (csrc/lookback.cuh: count, before and key,
+    each | 2^63), on a CPU tensor the plain version's."""
+    length = int(length)
+    if _build.check_units(w, length) == "cpu" or length == 0:
+        return tile_aggregates_ref(w, length, be, mode)
+    _, _, _, scratch, nt = _launch(w, length, be, _mode(mode))
+    slots = scratch[16: 16 + 24 * nt].view(torch.int64).view(nt, 3) & (2**63 - 1)
+    return slots[:, 0], slots[:, 2], slots[:, 1]

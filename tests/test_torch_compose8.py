@@ -11,7 +11,9 @@ err_any, err_pos, err_code and err_len. ``total`` counts 2 bytes for
 every surrogate, paired or not, so it equals the "utf8len" count on every
 input. The valid-only mode is held against the JAX package's valid-only
 engine (ops/utf16._codepoints / _utf8_widths / _emit_utf8). Integer
-results: exact.
+results: exact. The one-launch kernel's look-back aggregates (its
+per-tile triples) are held against the compose results on buffers of
+several 8192-unit tiles.
 """
 
 import jax
@@ -28,6 +30,7 @@ from simdutf_tpu_torch.kernels import utf16_kernels as tk16
 T = jb16.TILE_U  # 8192-unit butterfly tiles (the port's own are 2048)
 _jcompose = jax.jit(jb16.to_utf8_compose)
 _jutf8len = jax.jit(jo16.utf8_length, static_argnums=2)
+_jvalidate = jax.jit(jo16.validate_with_errors, static_argnums=2)
 
 
 def _units(text: str) -> np.ndarray:
@@ -137,9 +140,10 @@ def test_compose_empty_length():
 
 @pytest.mark.parametrize("err", [False, True])
 def test_tile_glue(err):
-    """The torch glue that both compose kernels run between their passes
-    (on the card only), on hand-made per-tile vectors: offsets, total,
-    and the first error from the least event key."""
+    """The torch glue that the composex kernels run between their passes
+    (on the card only; compose8 folds the same triples in its look-back),
+    on hand-made per-tile vectors: offsets, total, and the first error from
+    the least event key."""
     from simdutf_tpu_torch.ops.common import BIG, tile_glue
 
     none = BIG << 8
@@ -153,13 +157,21 @@ def test_tile_glue(err):
     assert [int(v) for v in rest] == want
 
 
+def _valid_engine(stored, length, be: bool):
+    w = jo16.native(stored, length, be)
+    cp, start = jo16._codepoints(w, length)
+    out, _, total = jo16._emit_utf8(cp, start, jo16._utf8_widths(cp, start), stored.shape[0])
+    return out, total
+
+
+_jvalid = jax.jit(_valid_engine, static_argnums=2)
+
+
 def _jax_valid_engine(buf: np.ndarray, length: int, be: bool):
     """The JAX package's valid-only engine (the general branch of
     ops/utf16.to_utf8_valid) on native-order units ``buf``."""
     stored = buf.byteswap() if be else buf
-    w = jo16.native(jnp.asarray(stored), length, be)
-    cp, start = jo16._codepoints(w, length)
-    out, _, total = jo16._emit_utf8(cp, start, jo16._utf8_widths(cp, start), len(buf))
+    out, total = _jvalid(jnp.asarray(stored), length, be)
     return np.asarray(out), int(total)
 
 
@@ -202,3 +214,129 @@ def test_unknown_mode_raises():
     with pytest.raises(ValueError):
         tc8.to_utf8_compose(torch.zeros(4, dtype=torch.int16).view(torch.uint16), 2, False,
                             mode="lenient")
+
+
+# -- the look-back aggregates of the one-launch kernel -----------------------
+#
+# csrc/compose8.cu publishes one (bytes, least event key, bytes before it)
+# triple a tile of 8192 units and folds its predecessors' with the
+# look-back's combine; the fold of the plain per-tile triples must give the
+# compose result's total, first error and err_len, in both modes and byte
+# orders.
+
+TT = tc8.TILE  # 8192-unit look-back tiles
+NO_EVENT = (2**31 - 1) << 8
+
+
+def _combine(a, b):
+    """The look-back's combine of two adjacent runs, ``a`` the earlier."""
+    return (a[0] + b[0], min(a[1], b[1]), a[2] if a[1] < b[1] else a[0] + b[2])
+
+
+def _dense(n: int, seed: int) -> np.ndarray:
+    """``n`` units of every width, pairs included, and no lone surrogate."""
+    units = _mixed(n, seed)
+    if units[-1] >> 10 == 0xD800 >> 10:  # a pair cut at the end
+        units[-1] = 0x78
+    return units
+
+
+def _plant(units: np.ndarray, pos: int, value: int) -> np.ndarray:
+    """``units`` with ``value`` at ``pos`` and 'x' on either side, so that
+    a planted surrogate is lone and breaks no pair around it."""
+    out = _with(units, slice(max(pos - 1, 0), pos + 2), 0x78)
+    if pos >= 2 and out[pos - 2] >> 10 == 0xD800 >> 10:  # a high left lone
+        out[pos - 2] = 0x78
+    if pos + 2 < len(out) and out[pos + 2] >> 10 == 0xDC00 >> 10:  # a low left lone
+        out[pos + 2] = 0x78
+    out[pos] = value
+    return out
+
+
+_D = _dense(4 * TT + 777, 21)
+LOOKBACK_CASES = {
+    "valid-many-tiles": _D,
+    "valid-one-tile": _dense(TT, 22),
+    "valid-tile+1": _dense(TT + 1, 23),
+    "valid-pair-straddles-tile": _with(_with(_D, TT - 1, 0xD83D), TT, 0xDE42),
+    "lone-hi@0": _plant(_D, 0, 0xD800),
+    "lone-lo@0": _plant(_D, 0, 0xDC00),
+    "lone-lo@tile": _plant(_D, TT, 0xDFFF),
+    "lone-hi@tile-1": _plant(_D, TT - 1, 0xDBFF),
+    "lone-hi@2tile-1": _plant(_D, 2 * TT - 1, 0xD800),
+    "lone-lo@3tile": _plant(_D, 3 * TT, 0xDC00),
+    "lone-hi@len-1": _with(_D, len(_D) - 1, 0xD83D),
+    "two-errors": _plant(_plant(_D, 3 * TT + 9, 0xDC00), TT + 3, 0xD800),
+}
+
+
+def _stored(units: np.ndarray, be: bool, extra: int = 5) -> torch.Tensor:
+    """``units`` in storage order, with ``extra`` garbage units past them."""
+    buf = np.random.default_rng(len(units)).integers(0, 1 << 16, len(units) + extra)
+    buf = buf.astype(np.uint16)
+    buf[: len(units)] = units
+    stored = buf.byteswap() if be else buf
+    return torch.from_numpy(stored.view(np.int16)).view(torch.uint16)
+
+
+@pytest.mark.parametrize("mode", ["validate", "valid"])
+@pytest.mark.parametrize("be", [False, True])
+@pytest.mark.parametrize("name", sorted(LOOKBACK_CASES))
+def test_tile_triples_combine_to_the_first_error(name, be, mode):
+    units = LOOKBACK_CASES[name]
+    L = len(units)
+    w = _stored(units, be)
+    count, key, before = tc8.tile_aggregates_ref(w, L, be, mode)
+    assert count.numel() == -(-L // TT)
+    acc = (0, NO_EVENT, 0)
+    for t in zip(count.tolist(), key.tolist(), before.tolist()):
+        acc = _combine(acc, t)
+    total, key, before = acc
+    _, want_total, err_any, err_pos, err_code, err_len = tc8.to_utf8_compose_ref(w, L, be, mode)
+    assert total == int(want_total)
+    assert (key >> 8, key & 0xFF) == (int(err_pos), int(err_code))
+    assert bool(err_any) == (key != NO_EVENT) == (
+        mode == "validate" and ("lone" in name or name == "two-errors"))
+    assert (before if key != NO_EVENT else 0) == int(err_len)
+    if mode == "validate":
+        assert total == int(tk16.utf16_reduce(w, L, be, "utf8len"))
+        stored = units.byteswap() if be else units
+        code, pos = _jvalidate(jnp.asarray(stored), L, be)
+        assert (int(pos) if int(code) else 2**31 - 1) == key >> 8
+    else:
+        buf = np.zeros(L + 5, np.uint16)
+        buf[:L] = units
+        assert total == _jax_valid_engine(buf, L, be)[1]
+
+
+def test_tile_aggregates_on_the_cpu_are_the_plain_ones():
+    w = _stored(LOOKBACK_CASES["two-errors"], False)
+    L = len(LOOKBACK_CASES["two-errors"])
+    for mode in ("validate", "valid"):
+        for got, want in zip(tc8._tile_aggregates(w, L, False, mode),
+                             tc8.tile_aggregates_ref(w, L, False, mode)):
+            assert torch.equal(got, want)
+    assert tc8._tile_aggregates(w, 0, False)[0].numel() == 0
+
+
+@pytest.mark.parametrize("mode", ["validate", "valid"])
+@pytest.mark.parametrize("be", [False, True])
+@pytest.mark.parametrize("name", ["valid-many-tiles", "lone-hi@tile-1", "two-errors"])
+def test_compose_matches_scatter_engine_across_lookback_tiles(name, be, mode):
+    """The compose contract on buffers of several 8192-unit tiles: the
+    butterfly's in the validating mode, the JAX valid-only engine's in the
+    other, with garbage past the length."""
+    units = LOOKBACK_CASES[name]
+    if mode == "validate":
+        _compare(units, be, garbage=True)
+        return
+    n = -(-len(units) // T) * T
+    buf = np.zeros(n, np.uint16)
+    buf[: len(units)] = units
+    want_out, want_total = _jax_valid_engine(buf, len(units), be)
+    stored = buf.byteswap() if be else buf
+    w = torch.from_numpy(stored.view(np.int16)).view(torch.uint16)
+    out, total, *err = tc8.to_utf8_compose(w, len(units), be, mode="valid")
+    assert np.array_equal(out.numpy(), want_out)
+    assert int(total) == want_total
+    assert [int(v) for v in err] == [0, 2**31 - 1, 0, 0]

@@ -333,7 +333,7 @@ def test_latin1_to_utf8_compose_matches_plain_version(cuda, n):
 def test_compose_wrappers_make_no_host_sync(cuda):
     """Every compose and compaction wrapper runs without a device-to-host
     read: count pass, tile_glue and emit pass of the two-pass ones, the
-    status reset and the one launch of compose16, compose32 and
+    status reset and the one launch of compose16, compose32, compose8 and
     b64_compact."""
     data = ("ab é 東 \U0001f642 " * 5000).encode()
     x = torch.from_numpy(np.frombuffer(data + b"\xff", np.uint8).copy()).to(cuda)
@@ -1084,16 +1084,20 @@ def test_b64_compact_many_tiles_and_zero_tail(cuda):
 
 
 def test_single_pass_wrappers_launch_once(cuda):
-    """compose16, compose32 and b64_compact: one kernel of their own a call
-    (the status reset is a memset inside the entry point, no torch fill),
-    one launch by the port's own counter."""
+    """compose16, compose32, compose8 and b64_compact: one kernel of their
+    own a call (the status reset is a memset inside the entry point, no
+    torch fill), one launch by the port's own counter."""
     from simdutf_tpu_torch import trace
 
     data = _mixed(5 * T16)
     x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda)
     chars = torch.from_numpy(np.frombuffer(pyb64.b64encode(data), np.uint8).copy()).to(cuda)
+    w16 = torch.from_numpy(np.frombuffer(data.decode().encode("utf-16-le"), np.int16).copy()
+                           ).to(cuda).view(torch.uint16)
     calls = (lambda: kc.to_utf16_compose(x, x.numel(), False),
              lambda: kc32.to_utf32_compose(x, x.numel()),
+             lambda: kc8.to_utf8_compose(w16, w16.numel(), False),
+             lambda: kc8.to_utf8_compose(w16, w16.numel(), True, mode="valid"),
              lambda: kc64.compact_codes(chars, chars.numel(), False, False))
     for call in calls:
         call()
@@ -1138,7 +1142,7 @@ def _cell_entries(dev):
             ("decode", lambda: ob.decode_bulk_routed(c, nc, False, False),
              {"b64_compact8": 1, "b64_pack": 1}, 0),
             ("utf16", lambda: o16.to_utf8(u, nu, False),
-             {"census_utf16": 1, "compose8_count": 1, "compose8_emit": 1}, 1)]
+             {"census_utf16": 1, "compose8": 1}, 1)]
 
 
 def _profiled(call, activities):
@@ -1154,9 +1158,8 @@ def _profiled(call, activities):
 
 
 def test_cell_entries_launch_and_sync_counts(cuda):
-    """Each benchmark cell's entry launches its kernels (two, or three
-    where compose8 makes two passes) and blocks the host as many times as
-    its route reads the device."""
+    """Each benchmark cell's entry launches its two kernels and blocks the
+    host as many times as its route reads the device."""
     from torch.profiler import ProfilerActivity
 
     for name, call, launches, syncs in _cell_entries(cuda):
@@ -1167,18 +1170,18 @@ def test_cell_entries_launch_and_sync_counts(cuda):
 
 
 def test_utf16_cell_entry_counts_its_fill_and_glue(cuda):
-    """The UTF-16 -> UTF-8 cell's entry zero-fills 3N bytes before
-    compose8's emit pass, counted once a call, and glues the passes inside
-    the compose8 wrapper's span."""
+    """The UTF-16 -> UTF-8 cell's entry zero-fills nothing (compose8
+    writes the zeros past out_len itself) and opens no tile glue span:
+    one launch of compose8 inside its wrapper's span."""
     from torch.profiler import ProfilerActivity
 
     name, call, _, _ = _cell_entries(cuda)[3]
     assert name == "utf16"
-    out = call()[2]
+    call()
     _, snap = _profiled(call, [ProfilerActivity.CPU])
-    assert snap["counts"] == {"compose.fill_bytes": out.numel()}
-    assert snap["spans"]["simdutf.passglue.tile_glue"]["parents"] == {
-        "simdutf.kernel.compose8.to_utf8_compose": 1}
+    assert snap["counts"] == {}
+    assert "simdutf.passglue.tile_glue" not in snap["spans"]
+    assert snap["spans"]["simdutf.kernel.compose8.to_utf8_compose"]["count"] == 1
 
 
 def test_sync_counter_misses_no_sync(cuda):
@@ -1281,6 +1284,116 @@ def test_compose32_fast_check_misses_no_event(cuda, off):
         want = kc32.tile_aggregates_ref(x, L)
         assert torch.equal(got[1].cpu(), want[1].cpu()), i
         assert _same(got, want), i
+    torch.cuda.synchronize()
+
+
+# -- compose8 (#34-#35) as one look-back launch ------------------------------
+
+T8 = kc8.TILE  # units per compose8 tile
+
+
+def _u16(text: str) -> np.ndarray:
+    return np.frombuffer(text.encode("utf-16-le"), np.uint16).copy()
+
+
+def _compose8_cases():
+    """(case, native units): lone surrogates in the first and the last
+    tile and at tile edges, pairs across tile edges, a ragged last tile, a
+    high surrogate at length - 1, every width."""
+    rng = np.random.default_rng(8)
+    alpha = ["a", " ", "é", "Ж", "東", "\U0001f642", "\U0010ffff"]
+    text = "".join(alpha[i] for i in rng.integers(0, len(alpha), 3 * T8))
+    base = _u16(text)[: 3 * T8 + 37]
+    if base[-1] >> 10 == 0xD800 >> 10:
+        base[-1] = 0x61
+    out = [("ragged", base), ("one", _u16("é")), ("one-tile", base[:T8]),
+           ("hi@len-1", np.append(base[:T8 + 5], np.uint16(0xD83D)))]
+    plain = np.full(3 * T8 + 37, 0x61, np.uint16)
+    for pos in (0, 1, T8 - 1, T8, 2 * T8 - 1, len(plain) - 1):
+        for name, v in (("hi", 0xDBFF), ("lo", 0xDC00)):
+            u = plain.copy()
+            u[pos] = v
+            out.append((f"{name}@{pos}", u))
+        if pos + 1 < len(plain):
+            u = plain.copy()
+            u[pos:pos + 2] = (0xD83D, 0xDE42)
+            out.append((f"pair@{pos}", u))
+    bad = base.copy()
+    bad[len(bad) - 3] = 0xDC00  # an error in the last tile only
+    if bad[len(bad) - 4] >> 10 == 0xD800 >> 10:
+        bad[len(bad) - 4] = 0x61
+    out.append(("err-last-tile", bad))
+    return out
+
+
+@pytest.mark.parametrize("case,units", _compose8_cases(), ids=[c for c, _ in _compose8_cases()])
+def test_compose8_tile_edges_match_plain_version(cuda, case, units):
+    """Both modes and byte orders, garbage past the length, the whole 3N
+    buffer (the zero tail included); and views off the 16-byte grid."""
+    L = len(units)
+    for be in (False, True):
+        buf = np.random.default_rng(L).integers(0, 1 << 16, L + 7).astype(np.uint16)
+        buf[:L] = units
+        if case == "hi@len-1":
+            buf[L] = 0xDE42  # its low surrogate, stored past the length
+        stored = buf.byteswap() if be else buf
+        w = torch.from_numpy(stored.view(np.int16)).to(cuda).view(torch.uint16)
+        for mode in ("validate", "valid"):
+            assert _same(kc8.to_utf8_compose(w, L, be, mode),
+                         kc8.to_utf8_compose_ref(w, L, be, mode)), (be, mode)
+            for off in (1, 3) if L > 3 else ():
+                v = w[off:]
+                assert v.data_ptr() % 16 != 0
+                assert _same(kc8.to_utf8_compose(v, L - off, be, mode),
+                             kc8.to_utf8_compose_ref(v, L - off, be, mode)), (be, mode, off)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("be", [False, True])
+def test_compose8_valid_total_past_3n(cuda, be):
+    """The valid-only mode on lone highs, 4 bytes a unit: total exceeds
+    3N and the writes stop at the buffer's end, across several tiles."""
+    highs = np.full(2 * T8 + 5, 0xDBFF, np.uint16)
+    stored = highs.byteswap() if be else highs
+    w = torch.from_numpy(stored.view(np.int16)).to(cuda).view(torch.uint16)
+    got = kc8.to_utf8_compose(w, w.numel(), be, mode="valid")
+    assert int(got[1]) == 4 * w.numel() > got[0].numel() == 3 * w.numel()
+    assert _same(got, kc8.to_utf8_compose_ref(w, w.numel(), be, mode="valid"))
+    torch.cuda.synchronize()
+
+
+def test_compose8_many_tiles_and_zero_tail(cuda):
+    """Far more tiles than resident blocks (look-back depth, out-of-order
+    starts), valid and with an error in the last tiles, both modes; each
+    call right after freeing a same-sized 0xFF buffer, so a zero the
+    kernel failed to write shows; and the 0-length call."""
+    units = _u16(_mixed(24 * 2**20).decode())
+    L = len(units) - 1
+    bad = units.copy()
+    bad[L - 5000] = 0xDC00
+    bad[L - 5001] = 0x61
+    for u in (units, bad):
+        w = torch.from_numpy(np.append(u, np.zeros(4096, np.uint16)).view(np.int16)
+                             ).to(cuda).view(torch.uint16)
+        for be, mode in ((False, "validate"), (True, "valid"), (False, "valid")):
+            junk = torch.full((3 * w.numel(),), -1, dtype=torch.int8, device=cuda)
+            del junk
+            got = kc8.to_utf8_compose(w, L, be, mode)
+            assert _same(got, kc8.to_utf8_compose_ref(w, L, be, mode)), (be, mode)
+    assert _same(kc8.to_utf8_compose(w, 0, False), kc8.to_utf8_compose_ref(w, 0, False))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["ragged", "lo@8192", "hi@16383", "err-last-tile"])
+@pytest.mark.parametrize("mode", ["validate", "valid"])
+def test_compose8_published_aggregates_match_plain_version(cuda, case, mode):
+    """Each tile's published triple against the plain one."""
+    units = dict(_compose8_cases())[case]
+    w = torch.from_numpy(units.view(np.int16)).to(cuda).view(torch.uint16)
+    got = kc8._tile_aggregates(w, len(units), False, mode)
+    want = kc8.tile_aggregates_ref(w, len(units), False, mode)
+    for g, x in zip(got, want):
+        assert torch.equal(g.cpu(), x.cpu())
     torch.cuda.synchronize()
 
 

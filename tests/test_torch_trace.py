@@ -186,9 +186,9 @@ def test_build_call_counts_every_launch(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream())
     _build.call("census_utf8")
     trace.reset()
-    _, snap, _ = profiled(lambda: [_build.call("compose8_count"), _build.call("compose8_emit"),
+    _, snap, _ = profiled(lambda: [_build.call("composex_count"), _build.call("composex_emit"),
                                    _build.call("census_utf8")])
-    assert snap["launches"] == {"compose8_count": 1, "compose8_emit": 1, "census_utf8": 1}
+    assert snap["launches"] == {"composex_count": 1, "composex_emit": 1, "census_utf8": 1}
 
 
 def test_count_records_only_under_a_profiler():
