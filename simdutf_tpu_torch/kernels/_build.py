@@ -26,6 +26,7 @@ from pathlib import Path
 import torch
 
 from .. import trace
+from ..ops.common import BIG
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "simdutf_tpu_torch"
@@ -196,6 +197,30 @@ def lookback_scratch(nt: int, device) -> torch.Tensor:
     Uncleared: the entry point clears the counter and the slots on the
     stream."""
     return torch.empty(16 + 48 * nt, dtype=torch.uint8, device=device)
+
+
+def lookback_compose(name: str, nt: int, out: torch.Tensor, *args):
+    """Launch look-back compose entry point ``name`` (compose8, compose16,
+    compose32) over ``nt`` tiles: its C arguments ``args``, then a
+    :func:`lookback_scratch`, ``out``, ``res`` int64[4] (total, err_pos,
+    err_code, err_len) and ``err_any`` bool[1], which the kernel writes.
+    Returns the compose result (out, total, err_any, err_pos, err_code,
+    err_len), the scalars 0-d tensors on ``out``'s device, and the
+    scratch, whose published slots the tests read."""
+    dev = out.device
+    res = torch.empty(4, dtype=torch.int64, device=dev)
+    err_any = torch.empty(1, dtype=torch.bool, device=dev)
+    scratch = lookback_scratch(nt, dev)
+    call(name, *args, scratch.data_ptr(), out.data_ptr(), res.data_ptr(),
+         err_any.data_ptr())
+    return (out, res[0], err_any[0], res[1], res[2], res[3]), scratch
+
+
+def nothing_in_range(out: torch.Tensor):
+    """The compose result where no element is in range and nothing
+    launches: ``out`` (zeroed by the caller), a total of 0 and no error."""
+    z = torch.zeros((), dtype=torch.int64, device=out.device)
+    return out, z, z != 0, z + BIG, z, z
 
 
 def check_bytes(b: torch.Tensor, length: int) -> str:

@@ -47,22 +47,6 @@ def _tiles(n: int, length: int) -> int:
     return -(-min(n, length + 1) // TILE)
 
 
-def _launch(b: torch.Tensor, length: int, big_endian: bool, clamp: bool):
-    """One launch on a CUDA tensor with ``length >= 1``: (out, res int64[4]
-    = total, err_pos, err_code, err_len; err_any bool[1]; scratch, nt)."""
-    n = b.shape[0]
-    dev = b.device
-    nt = _tiles(n, length)
-    out = torch.empty(n, dtype=torch.int16, device=dev).view(torch.uint16)
-    res = torch.empty(4, dtype=torch.int64, device=dev)
-    err_any = torch.empty(1, dtype=torch.bool, device=dev)
-    scratch = _build.lookback_scratch(nt, dev)
-    _build.call("compose16", b.data_ptr(), n, length, nt, int(big_endian),
-                int(clamp), scratch.data_ptr(), out.data_ptr(), res.data_ptr(),
-                err_any.data_ptr())
-    return out, res, err_any, scratch, nt
-
-
 @trace.kernel
 def to_utf16_compose(b: torch.Tensor, length: int, big_endian: bool,
                      clamp: bool = True):
@@ -81,12 +65,14 @@ def to_utf16_compose(b: torch.Tensor, length: int, big_endian: bool,
     length = int(length)
     if _build.check_bytes(b, length) == "cpu":
         return to_utf16_compose_ref(b, length, big_endian, clamp)
+    n = b.shape[0]
     if length == 0:  # nothing carries a unit: nothing to launch
-        z = torch.zeros((), dtype=torch.int64, device=b.device)
-        out = torch.zeros(b.shape[0], dtype=torch.int16, device=b.device)
-        return out.view(torch.uint16), z, z != 0, z + BIG, z, z
-    out, res, err_any, _, _ = _launch(b, length, big_endian, clamp)
-    return out, res[0], err_any[0], res[1], res[2], res[3]
+        out = torch.zeros(n, dtype=torch.int16, device=b.device)
+        return _build.nothing_in_range(out.view(torch.uint16))
+    nt = _tiles(n, length)
+    out = torch.empty(n, dtype=torch.int16, device=b.device).view(torch.uint16)
+    return _build.lookback_compose("compose16", nt, out, b.data_ptr(), n, length, nt,
+                                   int(big_endian), int(clamp))[0]
 
 
 def event_keys_ref(b: torch.Tensor, length: int):
@@ -146,7 +132,11 @@ def _tile_aggregates(b: torch.Tensor, length: int):
     length = int(length)
     if _build.check_bytes(b, length) == "cpu" or length == 0:
         return tile_aggregates_ref(b, length)
-    _, _, _, scratch, nt = _launch(b, length, False, True)
+    n = b.shape[0]
+    nt = _tiles(n, length)
+    out = torch.empty(n, dtype=torch.int16, device=b.device)
+    _, scratch = _build.lookback_compose("compose16", nt, out, b.data_ptr(), n, length,
+                                         nt, 0, 1)
     return published_aggregates(scratch, nt)
 
 

@@ -47,21 +47,6 @@ def _tiles(length: int) -> int:
     return -(-length // TILE)
 
 
-def _launch(b: torch.Tensor, length: int):
-    """One launch on a CUDA tensor with ``length >= 1``: (out, res int64[4]
-    = total, err_pos, err_code, err_len; err_any bool[1]; scratch, nt)."""
-    n = b.shape[0]
-    dev = b.device
-    nt = _tiles(length)
-    out = torch.empty(n, dtype=torch.int32, device=dev)
-    res = torch.empty(4, dtype=torch.int64, device=dev)
-    err_any = torch.empty(1, dtype=torch.bool, device=dev)
-    scratch = _build.lookback_scratch(nt, dev)
-    _build.call("compose32", b.data_ptr(), n, length, nt, scratch.data_ptr(),
-                out.data_ptr(), res.data_ptr(), err_any.data_ptr())
-    return out, res, err_any, scratch, nt
-
-
 @trace.kernel
 def to_utf32_compose(b: torch.Tensor, length: int):
     """Transcode ``b[:length]`` to UTF-32. Returns (out int32[N], total,
@@ -77,12 +62,12 @@ def to_utf32_compose(b: torch.Tensor, length: int):
     length = int(length)
     if _build.check_bytes(b, length) == "cpu":
         return to_utf32_compose_ref(b, length)
+    n = b.shape[0]
     if length == 0:  # nothing in range: nothing to launch
-        z = torch.zeros((), dtype=torch.int64, device=b.device)
-        out = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
-        return out, z, z != 0, z + BIG, z, z
-    out, res, err_any, _, _ = _launch(b, length)
-    return out, res[0], err_any[0], res[1], res[2], res[3]
+        return _build.nothing_in_range(torch.zeros(n, dtype=torch.int32, device=b.device))
+    nt = _tiles(length)
+    out = torch.empty(n, dtype=torch.int32, device=b.device)
+    return _build.lookback_compose("compose32", nt, out, b.data_ptr(), n, length, nt)[0]
 
 
 def tile_aggregates_ref(b: torch.Tensor, length: int):
@@ -103,5 +88,9 @@ def _tile_aggregates(b: torch.Tensor, length: int):
     length = int(length)
     if _build.check_bytes(b, length) == "cpu" or length == 0:
         return tile_aggregates_ref(b, length)
-    _, _, _, scratch, nt = _launch(b, length)
+    n = b.shape[0]
+    nt = _tiles(length)
+    out = torch.empty(n, dtype=torch.int32, device=b.device)
+    _, scratch = _build.lookback_compose("compose32", nt, out, b.data_ptr(), n, length,
+                                         nt)
     return published_aggregates(scratch, nt)

@@ -86,33 +86,20 @@ def to_utf8_compose(w: torch.Tensor, length: int, be: bool,
     valid = _mode(mode)
     if _build.check_units(w, length) == "cpu":
         return to_utf8_compose_ref(w, length, be, mode)
+    n = w.shape[0]
     if length == 0:  # nothing in range: nothing to launch
-        z = torch.zeros((), dtype=torch.int64, device=w.device)
-        out = torch.zeros(3 * w.shape[0], dtype=torch.uint8, device=w.device)
+        out = torch.zeros(3 * n, dtype=torch.uint8, device=w.device)
         trace.count("compose.fill_bytes", out.nbytes)
-        return out, z, z != 0, z + BIG, z, z
-    out, res, err_any, _, _ = _launch(w, length, be, valid)
-    return out, res[0], err_any[0], res[1], res[2], res[3]
+        return _build.nothing_in_range(out)
+    nt = _tiles(length)
+    out = torch.empty(3 * n, dtype=torch.uint8, device=w.device)
+    return _build.lookback_compose("compose8", nt, out, w.data_ptr(), n, length,
+                                   int(be), valid, nt)[0]
 
 
 def _tiles(length: int) -> int:
     """Tiles of a call: only in-range units emit bytes."""
     return -(-length // TILE)
-
-
-def _launch(w: torch.Tensor, length: int, be: bool, valid: int):
-    """One launch on a CUDA tensor with ``length >= 1``: (out, res int64[4]
-    = total, err_pos, err_code, err_len; err_any bool[1]; scratch, nt)."""
-    n = w.shape[0]
-    dev = w.device
-    nt = _tiles(length)
-    out = torch.empty(3 * n, dtype=torch.uint8, device=dev)
-    res = torch.empty(4, dtype=torch.int64, device=dev)
-    err_any = torch.empty(1, dtype=torch.bool, device=dev)
-    scratch = _build.lookback_scratch(nt, dev)
-    _build.call("compose8", w.data_ptr(), n, length, int(be), valid, nt,
-                scratch.data_ptr(), out.data_ptr(), res.data_ptr(), err_any.data_ptr())
-    return out, res, err_any, scratch, nt
 
 
 def tile_aggregates_ref(w: torch.Tensor, length: int, be: bool,
@@ -149,6 +136,10 @@ def _tile_aggregates(w: torch.Tensor, length: int, be: bool, mode: str = "valida
     length = int(length)
     if _build.check_units(w, length) == "cpu" or length == 0:
         return tile_aggregates_ref(w, length, be, mode)
-    _, _, _, scratch, nt = _launch(w, length, be, _mode(mode))
+    n = w.shape[0]
+    nt = _tiles(length)
+    out = torch.empty(3 * n, dtype=torch.uint8, device=w.device)
+    _, scratch = _build.lookback_compose("compose8", nt, out, w.data_ptr(), n, length,
+                                         int(be), _mode(mode), nt)
     slots = scratch[16: 16 + 24 * nt].view(torch.int64).view(nt, 3) & (2**63 - 1)
     return slots[:, 0], slots[:, 2], slots[:, 1]

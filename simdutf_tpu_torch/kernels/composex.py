@@ -39,12 +39,6 @@ from ..ops.common import BIG, tile_glue
 TILE = 2048  # elements per block; = EMITX_TILE (emitx.cuh), TILE (composex16.cu)
 
 
-def _none_in_range(out: torch.Tensor):
-    """The compose result when no element is in range: nothing launches."""
-    z = torch.zeros((), dtype=torch.int64, device=out.device)
-    return out, z, z != 0, z + BIG, z, z
-
-
 def _count_and_glue(name: str, nt: int, dev, *args):
     """Launch count pass ``name`` (its C arguments ``args`` before the
     per-tile outputs) and glue its per-tile vectors without a host read:
@@ -86,7 +80,7 @@ def u32_to_utf8_compose(w: torch.Tensor, length: int):
     trace.count("compose.fill_bytes", out.nbytes)
     nt = -(-length // TILE)
     if nt == 0:
-        return _none_in_range(out)
+        return _build.nothing_in_range(out)
     off, total, err_any, err_pos, err_code, err_len = _count_and_glue(
         "composex_count", nt, w.device, w.data_ptr(), length)
     _build.call("composex_emit", w.data_ptr(), length, nt, off.data_ptr(),
@@ -124,7 +118,7 @@ def u16_to_utf32_compose(w: torch.Tensor, length: int, be: bool):
     trace.count("compose.fill_bytes", out.nbytes)
     nt = -(-length // TILE)
     if nt == 0:
-        return _none_in_range(out)
+        return _build.nothing_in_range(out)
     off, total, err_any, err_pos, err_code, err_len = _count_and_glue(
         "u16_to_u32_count", nt, w.device, w.data_ptr(), length, int(be))
     _build.call("u16_to_u32_emit", w.data_ptr(), length, int(be), nt,
@@ -163,7 +157,7 @@ def u32_to_utf16_compose(w: torch.Tensor, length: int, be: bool):
     trace.count("compose.fill_bytes", out.nbytes)
     nt = -(-length // TILE)
     if nt == 0:
-        return _none_in_range(out)
+        return _build.nothing_in_range(out)
     off, total, err_any, err_pos, err_code, err_len = _count_and_glue(
         "u32_to_u16_count", nt, w.device, w.data_ptr(), length)
     _build.call("u32_to_u16_emit", w.data_ptr(), length, int(be), nt,

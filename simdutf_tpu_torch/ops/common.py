@@ -90,16 +90,48 @@ def scatter_writes(cap: int, writes, device) -> torch.Tensor:
     return out[:cap]
 
 
-def route(branches, default):
-    """Host-side pick of the first branch whose predicate holds, else
-    ``default``. ``branches`` = [(bool, fn), ...]; the predicates are
-    Python bools, so the caller pays one device sync per call to read
-    them (one read of the census bits through ``trace.sync``), where the
-    JAX package selects on the device with ``lax.switch``."""
-    for pred, fn in branches:
-        if pred:
-            return fn()
-    return default()
+def _fast(facts, fast):
+    """(out, count) of the first fast branch whose census fact holds, else
+    None. The facts are Python bools from the census's one read (one
+    ``trace.sync`` a call), where the JAX package selects on the device
+    with ``lax.switch``."""
+    for fact, branch in zip(facts, fast):
+        if fact:
+            return branch()
+    return None
+
+
+def routed(facts, fast, compose, length: int):
+    """A validating census-routed transcode: the first of ``fast`` whose
+    fact in ``facts`` holds, else ``compose``. Each fast branch returns
+    (out, count as a Python int) on a class its fact proves valid;
+    ``compose`` returns a compose kernel's (out, total, err_any, err_pos,
+    err_code, err_len), whose error lies in range and which reports
+    err_code 0 and err_pos BIG where err_any is False. Returns (err_code,
+    err_pos, out, out_len), the scalars 0-d int64 tensors on ``out``'s
+    device: err_pos is ``length`` and out_len the total where there is no
+    error."""
+    hit = _fast(facts, fast)
+    if hit is not None:
+        out, count = hit
+        dev = out.device
+        return scalar(0, dev), scalar(length, dev), out, scalar(count, dev)
+    out, total, err_any, err_pos, err_code, err_len = compose()
+    # err_pos < length on error and BIG without: one op, where a ``where``
+    # against the int would fill a device tensor with it first
+    return (err_code, err_pos.clamp(max=length), out,
+            torch.where(err_any, err_len, total))
+
+
+def routed_valid(facts, fast, compose):
+    """A valid-only census-routed transcode, picked as :func:`routed`
+    picks. Returns (out, out_len): a fast branch's count as a 0-d int64
+    tensor, or the first two elements of ``compose()``."""
+    hit = _fast(facts, fast)
+    if hit is not None:
+        out, count = hit
+        return out, scalar(count, out.device)
+    return compose()[:2]
 
 
 @trace.spanned(trace.PREFIX + "passglue.tile_glue")

@@ -17,7 +17,7 @@ from ..kernels import composex as kcx
 from ..kernels import transcode as ktr
 from ..kernels import transcode32 as ktr32
 from ..kernels import validate as kv
-from .common import bytes_out, excl_scan, positions, route, scalar, scatter_writes
+from .common import bytes_out, excl_scan, positions, routed_valid, scalar, scatter_writes
 
 
 def utf8_length(b: torch.Tensor, length: int) -> torch.Tensor:
@@ -58,19 +58,17 @@ def to_utf8(b: torch.Tensor, length: int):
     (kernels/composex.latin1_to_utf8_compose). Bytes past out_len are
     zero."""
     n = b.shape[0]
-    dev = b.device
-    ascii_, allhi = census(b, length)
 
     def br_ascii():
-        return bytes_out(b.to(torch.int32), length, 2 * n), scalar(length, dev)
+        return bytes_out(b.to(torch.int32), length, 2 * n), length
 
     def br_hi():
         x = b.to(torch.int32)
         by = torch.stack([(x >> 6) | 0xC0, (x & 0x3F) | 0x80], 1).reshape(-1)
-        return bytes_out(by, 2 * length, 2 * n), scalar(2 * length, dev)
+        return bytes_out(by, 2 * length, 2 * n), 2 * length
 
-    return route([(ascii_, br_ascii), (allhi, br_hi)],
-                 lambda: kcx.latin1_to_utf8_compose(b, length))
+    return routed_valid(census(b, length), (br_ascii, br_hi),
+                        lambda: kcx.latin1_to_utf8_compose(b, length))
 
 
 @trace.route

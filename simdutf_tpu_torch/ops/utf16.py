@@ -30,7 +30,8 @@ from .common import (
     count_before,
     excl_scan,
     positions,
-    route,
+    routed,
+    routed_valid,
     scalar,
     scatter_writes,
     shift_left,
@@ -111,7 +112,7 @@ def census(w: torch.Tensor, length: int, big_endian: bool):
     )
 
 
-def _u8_fast_branches(w: torch.Tensor, length: int, n: int, big_endian: bool):
+def _u8_fast_branches(w: torch.Tensor, length: int, big_endian: bool):
     """The fixed-rate utf16->utf8 branches (ascii, u2r, u3r, astral); each
     returns (out uint8[3n], out_len) bit-identical to the general engine
     on its class. The ascii, u2r and u3r branches are the fixed-rate
@@ -133,6 +134,7 @@ def _u8_fast_branches(w: torch.Tensor, length: int, n: int, big_endian: bool):
         return ktr.uniform3_utf16_to_utf8(w, length, big_endian)[0], 3 * length
 
     def br_astral():
+        n = w.shape[0]
         pr = _native16(w[: n // 2 * 2], big_endian).view(-1, 2)
         hi, lo = pr[:, 0], pr[:, 1]
         hb = hi - 0xD7C0  # cp >> 10, 11 bits
@@ -227,18 +229,6 @@ def _utf8_valid_parts(w: torch.Tensor, length: int, big_endian: bool):
     return (out & 0xFF).to(torch.uint8), total
 
 
-def _general_utf8(w: torch.Tensor, length: int, big_endian: bool):
-    """Mixed input: the compose kernel (kernels/compose8) at every buffer
-    size. Its output is already zero at/after the valid-prefix end.
-    Returns (err_code, err_pos, out uint8[3n], out_len)."""
-    out, total, err_any, err_pos, err_code, err_len = kc8.to_utf8_compose(
-        w, length, big_endian)
-    return (torch.where(err_any, err_code, torch.zeros_like(err_code)),
-            torch.where(err_any, err_pos, scalar(length, w.device)),
-            out,
-            torch.where(err_any, err_len, total))
-
-
 @trace.route
 def to_utf8(w: torch.Tensor, length: int, big_endian: bool):
     """Validating transcode, routed on a one-pass census: whole-buffer
@@ -249,21 +239,8 @@ def to_utf8(w: torch.Tensor, length: int, big_endian: bool):
     Returns (err_code, err_pos, out uint8[3N], out_len); on error out_len
     counts the bytes of the valid prefix, and bytes at/after out_len are
     zero."""
-    n = w.shape[0]
-    dev = w.device
-    classes = census(w, length, big_endian)
-    fast = _u8_fast_branches(w, length, n, big_endian)
-
-    def wrap(br):
-        def f():
-            out, cnt = br()
-            return scalar(0, dev), scalar(length, dev), out, scalar(cnt, dev)
-        return f
-
-    return route(
-        [(p, wrap(br)) for p, br in zip(classes, fast)],
-        lambda: _general_utf8(w, length, big_endian),
-    )
+    return routed(census(w, length, big_endian), _u8_fast_branches(w, length, big_endian),
+                  lambda: kc8.to_utf8_compose(w, length, big_endian), length)
 
 
 @trace.route
@@ -272,21 +249,9 @@ def to_utf8_valid(w: torch.Tensor, length: int, big_endian: bool):
     (out uint8[3N], out_len), census-routed like :func:`to_utf8`; all other
     input takes the compose kernel's valid-only mode, which gives the JAX
     package's output on invalid input too."""
-    n = w.shape[0]
-    dev = w.device
-    classes = census(w, length, big_endian)
-    fast = _u8_fast_branches(w, length, n, big_endian)
-
-    def wrap(br):
-        def f():
-            out, cnt = br()
-            return out, scalar(cnt, dev)
-        return f
-
-    return route(
-        [(p, wrap(br)) for p, br in zip(classes, fast)],
-        lambda: kc8.to_utf8_compose(w, length, big_endian, mode="valid")[:2],
-    )
+    return routed_valid(census(w, length, big_endian),
+                        _u8_fast_branches(w, length, big_endian),
+                        lambda: kc8.to_utf8_compose(w, length, big_endian, mode="valid"))
 
 
 @trace.route
@@ -321,7 +286,7 @@ def census32(w: torch.Tensor, length: int, big_endian: bool):
     return not sur, astral
 
 
-def _u32_fast_branches(w: torch.Tensor, length: int, n: int, big_endian: bool):
+def _u32_fast_branches(w: torch.Tensor, length: int, big_endian: bool):
     """The fixed-rate utf16->utf32 branches (bmp: a widen; astral: one
     word per pair); each returns (out int32[n], out_len) bit-identical to
     the general engine on its class. Each is a fixed-rate kernel of
@@ -372,45 +337,18 @@ def to_utf32(w: torch.Tensor, length: int, big_endian: bool):
     Returns (err_code, err_pos, out int32[N] of uint32 words, out_len); on
     error out_len counts the words of the valid prefix, and the words of
     every later start stay in ``out`` past it, as in the JAX package."""
-    n = w.shape[0]
-    dev = w.device
-    bmp, astral = census32(w, length, big_endian)
-    fast = _u32_fast_branches(w, length, n, big_endian)
-
-    def wrap(br):
-        def f():
-            out, cnt = br()
-            return scalar(0, dev), scalar(length, dev), out, scalar(cnt, dev)
-        return f
-
-    def general():
-        out, total, err_any, err_pos, err_code, err_len = kcx.u16_to_utf32_compose(
-            w, length, big_endian)
-        return (torch.where(err_any, err_code, torch.zeros_like(err_code)),
-                torch.where(err_any, err_pos, scalar(length, dev)),
-                out,
-                torch.where(err_any, err_len, total))
-
-    return route([(p, wrap(br)) for p, br in zip((bmp, astral), fast)], general)
+    return routed(census32(w, length, big_endian),
+                  _u32_fast_branches(w, length, big_endian),
+                  lambda: kcx.u16_to_utf32_compose(w, length, big_endian), length)
 
 
 @trace.route
 def to_utf32_valid(w: torch.Tensor, length: int, big_endian: bool):
     """convert_valid_utf16*_to_utf32: assumes valid input. Returns
     (out int32[N], out_len), routed like :func:`to_utf32`."""
-    n = w.shape[0]
-    dev = w.device
-    bmp, astral = census32(w, length, big_endian)
-    fast = _u32_fast_branches(w, length, n, big_endian)
-
-    def wrap(br):
-        def f():
-            out, cnt = br()
-            return out, scalar(cnt, dev)
-        return f
-
-    return route([(p, wrap(br)) for p, br in zip((bmp, astral), fast)],
-                 lambda: kcx.u16_to_utf32_compose(w, length, big_endian)[:2])
+    return routed_valid(census32(w, length, big_endian),
+                        _u32_fast_branches(w, length, big_endian),
+                        lambda: kcx.u16_to_utf32_compose(w, length, big_endian))
 
 
 @trace.route

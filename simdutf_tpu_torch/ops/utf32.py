@@ -21,7 +21,7 @@ from ..kernels import composex as kcx
 from ..kernels import transcode32 as ktr32
 from ..kernels import validate as kv
 from .common import (BIG, bswap16, bytes_out, count_before, excl_scan, positions,
-                     route, scalar, scatter_writes, to_u16, zero_tail)
+                     routed, routed_valid, scalar, scatter_writes, to_u16, zero_tail)
 
 _SURROGATE = int(ec.SURROGATE)
 _TOO_LARGE = int(ec.TOO_LARGE)
@@ -113,7 +113,7 @@ def census(w: torch.Tensor, length: int):
             hi <= 0xFFFF and not sur)
 
 
-def _u8_fast_branches(w: torch.Tensor, length: int, n: int):
+def _u8_fast_branches(w: torch.Tensor, length: int):
     """The four fixed-rate utf32->utf8 branches (ascii, u2, u3, astral);
     each returns (out uint8[4n], out_len) bit-identical to the general
     engine on its class (simdutf_tpu/ops/utf32._u8_fast_branches). The u2,
@@ -126,7 +126,7 @@ def _u8_fast_branches(w: torch.Tensor, length: int, n: int):
     tier's ``_u32_to_u8_fast`` has no ASCII arm)."""
 
     def br_ascii():
-        return bytes_out(native(w, length), length, 4 * n), length
+        return bytes_out(native(w, length), length, 4 * w.shape[0]), length
 
     def br_u2():
         return ktr32.uniform2_utf32_to_utf8(w, length)[0], 2 * length
@@ -185,49 +185,19 @@ def to_utf8(w: torch.Tensor, length: int):
     Returns (err_code, err_pos, out uint8[4N], out_len); on error out_len
     counts the bytes of the valid prefix, and the bytes of every later
     in-range word stay in ``out`` past it, as in the JAX package."""
-    n = w.shape[0]
-    dev = w.device
-    ascii_, u2, u3, astral, _ = census(w, length)
-    fast = _u8_fast_branches(w, length, n)
-
-    def wrap(br):
-        def f():
-            out, cnt = br()
-            return scalar(0, dev), scalar(length, dev), out, scalar(cnt, dev)
-        return f
-
-    def general():
-        out, total, err_any, err_pos, err_code, err_len = kcx.u32_to_utf8_compose(
-            w, length)
-        return (torch.where(err_any, err_code, torch.zeros_like(err_code)),
-                torch.where(err_any, err_pos, scalar(length, dev)),
-                out,
-                torch.where(err_any, err_len, total))
-
-    return route([(p, wrap(br)) for p, br in zip((ascii_, u2, u3, astral), fast)],
-                 general)
+    return routed(census(w, length)[:4], _u8_fast_branches(w, length),
+                  lambda: kcx.u32_to_utf8_compose(w, length), length)
 
 
 @trace.route
 def to_utf8_valid(w: torch.Tensor, length: int):
     """convert_valid_utf32_to_utf8: assumes valid input. Returns
     (out uint8[4N], out_len), census-routed like :func:`to_utf8`."""
-    n = w.shape[0]
-    dev = w.device
-    ascii_, u2, u3, astral, _ = census(w, length)
-    fast = _u8_fast_branches(w, length, n)
-
-    def wrap(br):
-        def f():
-            out, cnt = br()
-            return out, scalar(cnt, dev)
-        return f
-
-    return route([(p, wrap(br)) for p, br in zip((ascii_, u2, u3, astral), fast)],
-                 lambda: kcx.u32_to_utf8_compose(w, length)[:2])
+    return routed_valid(census(w, length)[:4], _u8_fast_branches(w, length),
+                        lambda: kcx.u32_to_utf8_compose(w, length))
 
 
-def _u16_fast_branches(w: torch.Tensor, length: int, n: int, big_endian: bool):
+def _u16_fast_branches(w: torch.Tensor, length: int, big_endian: bool):
     """The two fixed-rate utf32->utf16 branches (bmp: a narrowing store;
     astral: two units per word); each returns (out uint16[2n], out_len)
     bit-identical to the general engine on its class
@@ -280,45 +250,18 @@ def to_utf16(w: torch.Tensor, length: int, big_endian: bool):
     Returns (err_code, err_pos, out uint16[2N], out_len); on error out_len
     counts the units of the valid prefix, and the units of every later
     in-range word stay in ``out`` past it, as in the JAX package."""
-    n = w.shape[0]
-    dev = w.device
     _, _, _, astral, bmp = census(w, length)
-    fast = _u16_fast_branches(w, length, n, big_endian)
-
-    def wrap(br):
-        def f():
-            out, cnt = br()
-            return scalar(0, dev), scalar(length, dev), out, scalar(cnt, dev)
-        return f
-
-    def general():
-        out, total, err_any, err_pos, err_code, err_len = kcx.u32_to_utf16_compose(
-            w, length, big_endian)
-        return (torch.where(err_any, err_code, torch.zeros_like(err_code)),
-                torch.where(err_any, err_pos, scalar(length, dev)),
-                out,
-                torch.where(err_any, err_len, total))
-
-    return route([(p, wrap(br)) for p, br in zip((bmp, astral), fast)], general)
+    return routed((bmp, astral), _u16_fast_branches(w, length, big_endian),
+                  lambda: kcx.u32_to_utf16_compose(w, length, big_endian), length)
 
 
 @trace.route
 def to_utf16_valid(w: torch.Tensor, length: int, big_endian: bool):
     """convert_valid_utf32_to_utf16*: assumes valid input. Returns
     (out uint16[2N], out_len), census-routed like :func:`to_utf16`."""
-    n = w.shape[0]
-    dev = w.device
     _, _, _, astral, bmp = census(w, length)
-    fast = _u16_fast_branches(w, length, n, big_endian)
-
-    def wrap(br):
-        def f():
-            out, cnt = br()
-            return out, scalar(cnt, dev)
-        return f
-
-    return route([(p, wrap(br)) for p, br in zip((bmp, astral), fast)],
-                 lambda: kcx.u32_to_utf16_compose(w, length, big_endian)[:2])
+    return routed_valid((bmp, astral), _u16_fast_branches(w, length, big_endian),
+                        lambda: kcx.u32_to_utf16_compose(w, length, big_endian))
 
 
 @trace.route

@@ -28,7 +28,8 @@ from .common import (
     count_before,
     excl_scan,
     positions,
-    route,
+    routed,
+    routed_valid,
     scalar,
     scatter_writes,
     shift_left,
@@ -178,11 +179,7 @@ def census(b: torch.Tensor, length: int):
     return census_full(b, length)[:4]
 
 
-def presence(b: torch.Tensor, length: int):
-    return census_full(b, length)[4:]
-
-
-def _u16_fast_branches(b: torch.Tensor, length: int, n: int, big_endian: bool):
+def _u16_fast_branches(b: torch.Tensor, length: int, big_endian: bool):
     """The four fixed-rate utf8->utf16 branches; each returns
     (out uint16[n], out_len) bit-identical to the general engine on its
     class. Each is a fixed-rate kernel of kernels/transcode (the JAX
@@ -248,19 +245,6 @@ def _utf16_general_parts(b: torch.Tensor, length: int, big_endian: bool,
     return err_pos, err_code, out, total, err_len
 
 
-def _general_utf16(b: torch.Tensor, length: int, big_endian: bool):
-    """Mixed input: the compose kernel (kernels/compose16) at every buffer
-    size. Its output is already zero at/after the valid-prefix end.
-    Returns (err_code, err_pos, out uint16[n], out_len)."""
-    out, total, err_any, err_pos, err_code, err_len = kc16.to_utf16_compose(
-        b, length, big_endian)
-    zero = torch.zeros_like(err_code)
-    return (torch.where(err_any, err_code, zero),
-            torch.where(err_any, err_pos, scalar(length, b.device)),
-            out,
-            torch.where(err_any, err_len, total))
-
-
 @trace.route
 def to_utf16(b: torch.Tensor, length: int, big_endian: bool):
     """Validating transcode, routed on a one-pass census: whole-buffer
@@ -273,21 +257,8 @@ def to_utf16(b: torch.Tensor, length: int, big_endian: bool):
     Returns (err_code, err_pos, out uint16[N], out_len); on error out_len
     counts the units of the valid prefix, and units at/after out_len are
     zero."""
-    n = b.shape[0]
-    ascii_, u2, u3, u4, _, _ = census_full(b, length)
-    fast = _u16_fast_branches(b, length, n, big_endian)
-    dev = b.device
-
-    def wrap(br):
-        def f():
-            out, cnt = br()
-            return scalar(0, dev), scalar(length, dev), out, scalar(cnt, dev)
-        return f
-
-    return route(
-        [(p, wrap(br)) for p, br in zip((ascii_, u2, u3, u4), fast)],
-        lambda: _general_utf16(b, length, big_endian),
-    )
+    return routed(census(b, length), _u16_fast_branches(b, length, big_endian),
+                  lambda: kc16.to_utf16_compose(b, length, big_endian), length)
 
 
 @trace.route
@@ -296,27 +267,11 @@ def to_utf16_valid(b: torch.Tensor, length: int, big_endian: bool):
     (out uint16[N], out_len), census-routed like :func:`to_utf16`; all
     other input takes the compose kernel without its clamp, which gives
     the JAX package's output on invalid input too."""
-    n = b.shape[0]
-    ascii_, u2, u3, u4, _, _ = census_full(b, length)
-    fast = _u16_fast_branches(b, length, n, big_endian)
-    dev = b.device
-
-    def wrap(br):
-        def f():
-            out, cnt = br()
-            return out, scalar(cnt, dev)
-        return f
-
-    def general():
-        return kc16.to_utf16_compose(b, length, big_endian, clamp=False)[:2]
-
-    return route(
-        [(p, wrap(br)) for p, br in zip((ascii_, u2, u3, u4), fast)],
-        general,
-    )
+    return routed_valid(census(b, length), _u16_fast_branches(b, length, big_endian),
+                        lambda: kc16.to_utf16_compose(b, length, big_endian, clamp=False))
 
 
-def _u32_fast_branches(b: torch.Tensor, length: int, n: int):
+def _u32_fast_branches(b: torch.Tensor, length: int):
     """The four fixed-rate utf8->utf32 branches (ascii, u2, u3, u4); each
     returns (out int32[n] of code points, out_len) bit-identical to the
     general engine on its class (simdutf_tpu/ops/utf8._u32_fast_branches).
@@ -372,46 +327,16 @@ def to_utf32(b: torch.Tensor, length: int):
     out_len); on error out_len counts the words of the valid prefix, and
     the code points of every later in-range lead stay in ``out`` past it,
     as in the JAX package."""
-    n = b.shape[0]
-    dev = b.device
-    ascii_, u2, u3, u4, _, _ = census_full(b, length)
-    fast = _u32_fast_branches(b, length, n)
-
-    def wrap(br):
-        def f():
-            out, cnt = br()
-            return scalar(0, dev), scalar(length, dev), out, scalar(cnt, dev)
-        return f
-
-    def general():
-        out, total, err_any, err_pos, err_code, err_len = kc32.to_utf32_compose(
-            b, length)
-        return (torch.where(err_any, err_code, torch.zeros_like(err_code)),
-                torch.where(err_any, err_pos, scalar(length, dev)),
-                out,
-                torch.where(err_any, err_len, total))
-
-    return route([(p, wrap(br)) for p, br in zip((ascii_, u2, u3, u4), fast)],
-                 general)
+    return routed(census(b, length), _u32_fast_branches(b, length),
+                  lambda: kc32.to_utf32_compose(b, length), length)
 
 
 @trace.route
 def to_utf32_valid(b: torch.Tensor, length: int):
     """convert_valid_utf8_to_utf32: assumes valid input. Returns
     (out int32[N], out_len), census-routed like :func:`to_utf32`."""
-    n = b.shape[0]
-    dev = b.device
-    ascii_, u2, u3, u4, _, _ = census_full(b, length)
-    fast = _u32_fast_branches(b, length, n)
-
-    def wrap(br):
-        def f():
-            out, cnt = br()
-            return out, scalar(cnt, dev)
-        return f
-
-    return route([(p, wrap(br)) for p, br in zip((ascii_, u2, u3, u4), fast)],
-                 lambda: kc32.to_utf32_compose(b, length)[:2])
+    return routed_valid(census(b, length), _u32_fast_branches(b, length),
+                        lambda: kc32.to_utf32_compose(b, length))
 
 
 def _latin1_leads(bb: torch.Tensor, length: int):

@@ -95,3 +95,62 @@ def test_compose_without_clamp_matches_jax_valid_engine(name, be):
     # the validating call's scalars are unchanged by the clamp
     clamped = tc.to_utf16_compose(torch.from_numpy(buf), len(data), be)
     assert [int(v) for v in got[1:]] == [int(v) for v in clamped[1:]]
+
+
+# -- the compose contract that ops/common.routed assembles on ----------------
+
+_TEXT = "aé東\U0001f642 " * 40
+
+
+def _units(s: str, *extra: int) -> torch.Tensor:
+    u = np.concatenate([np.frombuffer(s.encode("utf-16-le"), np.uint16),
+                        np.array(extra, np.uint16)])
+    return torch.from_numpy(u.view(np.int16)).view(torch.uint16)
+
+
+def _words(s: str, *extra: int) -> torch.Tensor:
+    w = np.array([ord(c) for c in s] + list(extra), np.uint32)
+    return torch.from_numpy(w.view(np.int32))
+
+
+#: (input valid, input with errors), each a 1-D tensor taken whole
+_INPUTS = {
+    "bytes": (torch.frombuffer(bytearray(_TEXT.encode()), dtype=torch.uint8),
+              torch.frombuffer(bytearray(_TEXT.encode() + b"\xff" + b"z" * 9),
+                               dtype=torch.uint8)),
+    "units": (_units(_TEXT), _units(_TEXT, 0xD800, 0x61, 0xDC00)),
+    "words": (_words(_TEXT), _words(_TEXT, 0x110000, 0xD800, 0x61)),
+}
+
+
+def _wrappers():
+    from simdutf_tpu_torch.kernels import compose8 as tc8
+    from simdutf_tpu_torch.kernels import compose32 as tc32
+    from simdutf_tpu_torch.kernels import composex as tcx
+
+    return {
+        "compose8": ("units", lambda x, n: tc8.to_utf8_compose(x, n, False)),
+        "compose8_valid": ("units", lambda x, n: tc8.to_utf8_compose(x, n, False, "valid")),
+        "compose16": ("bytes", lambda x, n: tc.to_utf16_compose(x, n, False)),
+        "compose16_no_clamp": ("bytes",
+                               lambda x, n: tc.to_utf16_compose(x, n, False, clamp=False)),
+        "compose32": ("bytes", tc32.to_utf32_compose),
+        "u32_to_utf8": ("words", tcx.u32_to_utf8_compose),
+        "u16_to_utf32": ("units", lambda x, n: tcx.u16_to_utf32_compose(x, n, False)),
+        "u32_to_utf16": ("words", lambda x, n: tcx.u32_to_utf16_compose(x, n, False)),
+    }
+
+
+@pytest.mark.parametrize("valid", [True, False], ids=["valid", "invalid"])
+@pytest.mark.parametrize("wrapper", sorted(_wrappers()))
+def test_no_error_is_code_0_at_big(wrapper, valid):
+    """ops/common.routed passes err_code on as it is and clamps err_pos to
+    the length, so every compose wrapper must report err_code 0 and
+    err_pos BIG exactly when err_any is False, and an error in range."""
+    kind, fn = _wrappers()[wrapper]
+    x = _INPUTS[kind][0 if valid else 1]
+    length = x.shape[0] - 1  # an element past the length: garbage to ignore
+    _, _, err_any, err_pos, err_code, _ = fn(x, length)
+    assert bool(err_any) == (not valid and wrapper != "compose8_valid")
+    assert (int(err_code) == 0 and int(err_pos) == 2**31 - 1) == (not bool(err_any))
+    assert not err_any or int(err_pos) < length

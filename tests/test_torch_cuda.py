@@ -1169,6 +1169,34 @@ def test_cell_entries_launch_and_sync_counts(cuda):
         assert snap["syncs"] == syncs, name
 
 
+#: device rows (kernels, copies, memsets) of each cell entry's call: the
+#: census's zeroed bits, kernel and read (3); compose16 or compose8's
+#: cleared counter and kernel (2), then ops/common.routed's clamp of
+#: err_pos and where of out_len (2); or ascii_widen_utf16's zeroed flag
+#: and kernel (2) and the fast branch's three scalar fills (3)
+_CELL_OPS = {"mixed": 7, "ascii": 8, "decode": 12, "utf16": 7}
+
+
+def test_cell_entries_device_op_counts(cuda):
+    """Each benchmark cell's entry makes as many device operations as its
+    route and kernels account for; the benchmark's ``ops_per_call`` adds
+    the harness's own result read to these."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    api_call = re.compile(r"^cu(da)?[A-Z]")  # runtime calls filed as device rows
+    got = {}
+    for name, call, _, _ in _cell_entries(cuda):
+        call()
+        prof, _ = _profiled(call, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        got[name] = sum(1 for e in prof.profiler.kineto_results.events()
+                        if e.device_type() == DeviceType.CUDA
+                        and not api_call.match(e.name()))
+    assert got == _CELL_OPS
+
+
 def test_utf16_cell_entry_counts_its_fill_and_glue(cuda):
     """The UTF-16 -> UTF-8 cell's entry zero-fills nothing (compose8
     writes the zeros past out_len itself) and opens no tile glue span:

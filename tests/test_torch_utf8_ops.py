@@ -122,11 +122,13 @@ def test_to_utf16_valid_matches_jax(name, be):
 
 @pytest.mark.parametrize("be", [False, True])
 def test_general_engine_matches_jax_scatter(be):
-    """The plain engine (the compose kernel's CPU twin) against the JAX
-    package's scatter engine on input no census class covers."""
+    """The routed transcode on input no census class covers, which takes
+    the compose kernel (its plain version here), against the JAX
+    package's scatter engine."""
     jb, jn, x, length = _both(_text(5, 5000, 2))
+    assert not any(to8.census(x, length))
     code, pos, out, out_len = jo8._to_utf16_general(jb, jn, be)
-    tcode, tpos, tout, tout_len = to8._general_utf16(x, length, be)
+    tcode, tpos, tout, tout_len = to8.to_utf16(x, length, be)
     assert (int(tcode), int(tpos), int(tout_len)) == (int(code), int(pos), int(out_len))
     assert np.array_equal(_u16(tout), np.asarray(out).astype(np.uint16))
 
