@@ -90,7 +90,7 @@ __global__ void __launch_bounds__(THREADS, 4)
     // 2-3. the leads (bit 7 of each byte) and the fast check
     uint32_t km[WORDS];
     int cnt;
-    const uint32_t flag = su::mark_and_check<WORDS, false>(w, s, length, n, full, km, &cnt);
+    const uint32_t flag = su::mark_and_check<WORDS, false, THREADS>(w, s, length, n, full, km, &cnt);
     int tile_cnt;
     int slot = su::block_excl_scan<NW>(cnt, s_scan, &tile_cnt);
     su::Triple own = su::triple(tile_cnt, tile_cnt, su::NO_EVENT);

@@ -138,8 +138,9 @@ __device__ __forceinline__ bool load_window(const uint8_t* __restrict__ b,
 // byte after a 4-byte lead below n, which then also has bit 6. *cnt gets
 // the marked bytes. Returns the fast check's flags of the thread's bytes,
 // of the four bytes before the tile (F8-FF) for the first thread and of
-// the four after it for the last.
-template <int WORDS, bool AFTER4>
+// the four after it for the last (thread TT - 1: a tile is TT threads,
+// threads 0 .. TT - 1 of the block).
+template <int WORDS, bool AFTER4, int TT>
 __device__ __forceinline__ uint32_t mark_and_check(const uint32_t (&w)[WORDS + 3],
                                                    long long s, long long length,
                                                    long long n, bool full,
@@ -173,7 +174,7 @@ __device__ __forceinline__ uint32_t mark_and_check(const uint32_t (&w)[WORDS + 3
     cp = c;
     sp = sx;
   }
-  if (threadIdx.x == blockDim.x - 1) {  // events of the tile's last leads
+  if (threadIdx.x == TT - 1) {  // events of the tile's last leads
     const Classes c = classes(w[WORDS + 2]);
     flag |= check_word(w[WORDS + 2], c, special(w[WORDS + 2], c), cp, sp);
   }
@@ -181,19 +182,14 @@ __device__ __forceinline__ uint32_t mark_and_check(const uint32_t (&w)[WORDS + 3
   return flag;
 }
 
-// The exact (count, least key, count before it) of a tile the fast check
+// The least event key of utf8.cuh's event_key lattice among the thread's
+// bytes (from s, tile offset threadIdx.x * PER) of a tile the fast check
 // flagged: s_b[r] is the byte at tile offset r (r >= -3; zero past
-// `length`), the thread's bytes start at s (tile offset tid * PER), km its
-// marks, tile_cnt the tile's marked bytes. A rolled loop over the staged
-// bytes: this path is rare, and its registers would otherwise count against
-// every tile's occupancy.
-template <int NW, int WORDS>
-__device__ __forceinline__ Triple exact_triple(const uint8_t* s_b, long long s,
-                                               long long length,
-                                               const uint32_t (&km)[WORDS],
-                                               int tile_cnt,
-                                               unsigned long long* s_key,
-                                               int* s_scan) {
+// `length`). A rolled loop over the staged bytes: this path is rare, and its
+// registers would otherwise count against every tile's occupancy.
+template <int WORDS>
+__device__ __forceinline__ unsigned long long exact_key(const uint8_t* s_b, long long s,
+                                                        long long length) {
   constexpr int PER = 4 * WORDS;
   unsigned long long key = NO_EVENT;
 #pragma unroll 1
@@ -204,13 +200,31 @@ __device__ __forceinline__ Triple exact_triple(const uint8_t* s_b, long long s,
                   s_b[r - 1], s_b[r - 2], s_b[r - 3]);
     key = e < key ? e : key;
   }
-  key = block_min_u64<NW>(key, s_key);
+  return key;
+}
+
+// The thread's marked bytes (marks km, bytes from s) before position epos.
+template <int WORDS>
+__device__ __forceinline__ int marked_before(const uint32_t (&km)[WORDS], long long s,
+                                             long long epos) {
   int pre = 0;
-  if (key != NO_EVENT) {
-    const long long epos = (long long)(key >> 8);
 #pragma unroll
-    for (int k = 0; k < WORDS; ++k) pre += __popc(km[k] & H & below(s + 4 * k, epos));
-  }
+  for (int k = 0; k < WORDS; ++k) pre += __popc(km[k] & H & below(s + 4 * k, epos));
+  return pre;
+}
+
+// The exact (count, least key, count before it) of a tile the fast check
+// flagged, over a block of NW warps: exact_key and marked_before of each
+// thread (marks km), reduced; tile_cnt is the tile's marked bytes.
+template <int NW, int WORDS>
+__device__ __forceinline__ Triple exact_triple(const uint8_t* s_b, long long s,
+                                               long long length,
+                                               const uint32_t (&km)[WORDS],
+                                               int tile_cnt,
+                                               unsigned long long* s_key,
+                                               int* s_scan) {
+  const unsigned long long key = block_min_u64<NW>(exact_key<WORDS>(s_b, s, length), s_key);
+  int pre = key != NO_EVENT ? marked_before(km, s, (long long)(key >> 8)) : 0;
   pre = block_sum<NW>(pre, s_scan);
   return triple(tile_cnt, key == NO_EVENT ? tile_cnt : pre, key);
 }

@@ -46,6 +46,7 @@ SIGNATURES = {
     "utf8_count": (_P, _I64, _I32, _P, _P),
     "ascii_first_bad": (_P, _I64, _P, _P),
     "compose16": (_P, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P),
+    "compose16_grid": (_P, _I64, _I64, _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P),
     "census_utf16": (_P, _I64, _I32, _P, _P),
     "utf16_first_bad": (_P, _I64, _I32, _P, _P),
     "utf16_count": (_P, _I64, _I32, _I32, _P, _P),

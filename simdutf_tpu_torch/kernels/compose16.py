@@ -8,13 +8,17 @@ across tiles (csrc/lookback.cuh) that also writes the zeros past out_len
 and the five scalars; on a CPU tensor it runs :func:`to_utf16_compose_ref`.
 
 The traffic floor is HBM bytes: one read of the input, one write of the
-whole uint16 output. Each 16 KiB tile (256 threads x 64 bytes) is read
-once, checked with a mask test that may flag valid text but never misses
-an event (only a flagged tile computes the exact event keys), and its
-units are staged in shared memory and stored as aligned 16-byte runs at
-the offset its look-back finds. The TPU engine compacts each tile with
-roll/select butterflies because scatters were slow on that chip. There is
-no alignment demand on the buffer size: the ragged last tile is masked.
+whole uint16 output. Design: a block is eight data warps and one look-back
+warp. Each 16 KiB tile (256 data threads x 64 bytes) is read once, into
+registers, while the previous tile is stored; it is checked with a mask
+test that may flag valid text but never misses an event (only a flagged
+tile stages its bytes and computes the exact event keys); each unit is
+decoded in the registers of the thread that owns its byte and written once
+to its slot in one of two staging buffers; the look-back warp finds the
+tile's offset while the data warps go on with the next tile, and the units
+are then stored as aligned 16-byte runs. The TPU engine compacts each tile
+with roll/select butterflies because scatters were slow on that chip. There
+is no alignment demand on the buffer size: the ragged last tile is masked.
 """
 
 from __future__ import annotations
@@ -65,14 +69,29 @@ def to_utf16_compose(b: torch.Tensor, length: int, big_endian: bool,
     length = int(length)
     if _build.check_bytes(b, length) == "cpu":
         return to_utf16_compose_ref(b, length, big_endian, clamp)
-    n = b.shape[0]
     if length == 0:  # nothing carries a unit: nothing to launch
-        out = torch.zeros(n, dtype=torch.int16, device=b.device)
+        out = torch.zeros(b.shape[0], dtype=torch.int16, device=b.device)
         return _build.nothing_in_range(out.view(torch.uint16))
+    return _launch("compose16", b, length, big_endian, clamp)[0]
+
+
+def _launch(entry: str, b: torch.Tensor, length: int, big_endian: bool, clamp: bool,
+            *extra):
+    """One launch of C entry point ``entry`` (``compose16``, or
+    ``compose16_grid`` with its grid cap in ``extra``) on a CUDA tensor
+    with ``length`` > 0: the compose result and the look-back scratch."""
+    n = b.shape[0]
     nt = _tiles(n, length)
     out = torch.empty(n, dtype=torch.int16, device=b.device).view(torch.uint16)
-    return _build.lookback_compose("compose16", nt, out, b.data_ptr(), n, length, nt,
-                                   int(big_endian), int(clamp))[0]
+    return _build.lookback_compose(entry, nt, out, b.data_ptr(), n, length, nt,
+                                   int(big_endian), int(clamp), *extra)
+
+
+def _on_blocks(b: torch.Tensor, length: int, big_endian: bool, clamp: bool, blocks: int):
+    """:func:`to_utf16_compose` of a CUDA tensor on a grid of at most
+    ``blocks`` blocks (0: as many as are resident at once), for tests: one
+    block takes every tile in turn."""
+    return _launch("compose16_grid", b, int(length), big_endian, clamp, int(blocks))[0]
 
 
 def event_keys_ref(b: torch.Tensor, length: int):
@@ -132,12 +151,8 @@ def _tile_aggregates(b: torch.Tensor, length: int):
     length = int(length)
     if _build.check_bytes(b, length) == "cpu" or length == 0:
         return tile_aggregates_ref(b, length)
-    n = b.shape[0]
-    nt = _tiles(n, length)
-    out = torch.empty(n, dtype=torch.int16, device=b.device)
-    _, scratch = _build.lookback_compose("compose16", nt, out, b.data_ptr(), n, length,
-                                         nt, 0, 1)
-    return published_aggregates(scratch, nt)
+    _, scratch = _launch("compose16", b, length, False, True)
+    return published_aggregates(scratch, _tiles(b.shape[0], length))
 
 
 def published_aggregates(scratch: torch.Tensor, nt: int):
