@@ -1670,3 +1670,42 @@ def test_census_checked_chunks(cuda, ch):
     else:
         assert checked == chunks
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("planted", [False, True], ids=["valid", "error_near_end"])
+def test_utf8_to_utf32_cell_entry_at_full_size(cuda, planted):
+    """The ``utf8_to_utf32.mixed_64m`` cell's entry, ``ops.utf8.to_utf32``,
+    on one full 64 MiB buffer of the cell's text, staged as the cell stages
+    it: every word and the zeros past ``out_len`` against the benchmark's
+    plain reference; with a 0xFF planted at a character start near the end,
+    the scalars and the words before it."""
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from bench_torch import harness
+    from bench_torch.configs import utf8_to_utf32_ref as ref
+    from simdutf_tpu_torch import impl
+
+    gen = harness.load_module(harness.HERE / "traffic" / "text.py", "bench_torch.traffic.text")
+    data = gen.generate(harness.load_cell("utf8_to_utf32.mixed_64m").traffic, 2**31 + 22,
+                        cuda)[0]
+    if planted:
+        k = len(data) - 4099
+        while data[k] & 0xC0 == 0x80:
+            k -= 1
+        data[k] = 0xFF
+    buf, n = impl._pad(data)
+    x, n = impl.to_device(buf, n, cuda)
+    code, pos, out, out_len = o8.to_utf32(x, n)
+    got = tuple(torch.stack([code, pos, out_len]).tolist())
+    want_code, want_pos, words = ref.convert(data.tobytes())
+    assert got == (want_code, want_pos, len(words))
+    assert (want_code != 0) == planted and out.shape == (x.shape[0],)
+    w = out.cpu().numpy().view(np.uint32)
+    assert np.array_equal(w[: len(words)], words)
+    if not planted:
+        assert not w[len(words):].any()
+    torch.cuda.synchronize()
