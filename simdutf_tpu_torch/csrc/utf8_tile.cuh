@@ -1,8 +1,10 @@
 // The per-tile pieces of the single-pass UTF-8 look-back kernels, shared by
 // compose16.cu (UTF-8 -> UTF-16) and compose32.cu (UTF-8 -> UTF-32): the
 // window a thread reads, the marks of the bytes that carry output, the fast
-// check of the error lattice, the exact triple of a flagged tile and the
-// branch-free decode of a lead.
+// check of the error lattice, the exact key of a flagged tile, the
+// branch-free decode of a lead, and (compose32.cu) the barriers,
+// reductions and zero stores of the data warps of a block that also holds
+// a look-back warp.
 //
 // A thread owns PER consecutive bytes of a tile (WORDS = PER / 4 words)
 // and reads them with 8 bytes of halo before and 4 after, as NWIN = WORDS + 3
@@ -213,28 +215,6 @@ __device__ __forceinline__ int marked_before(const uint32_t (&km)[WORDS], long l
   return pre;
 }
 
-// The exact (count, least key, count before it) of a tile the fast check
-// flagged, over a block of NW warps: exact_key and marked_before of each
-// thread (marks km), reduced; tile_cnt is the tile's marked bytes.
-template <int NW, int WORDS>
-__device__ __forceinline__ Triple exact_triple(const uint8_t* s_b, long long s,
-                                               long long length,
-                                               const uint32_t (&km)[WORDS],
-                                               int tile_cnt,
-                                               unsigned long long* s_key,
-                                               int* s_scan) {
-  const unsigned long long key = block_min_u64<NW>(exact_key<WORDS>(s_b, s, length), s_key);
-  int pre = key != NO_EVENT ? marked_before(km, s, (long long)(key >> 8)) : 0;
-  pre = block_sum<NW>(pre, s_scan);
-  return triple(tile_cnt, key == NO_EVENT ? tile_cnt : pre, key);
-}
-
-// The 4 bytes from tile offset r of the staged little-endian words s_w
-// (the byte at r lowest).
-__device__ __forceinline__ uint32_t window_at(const uint32_t* s_w, int r) {
-  return __funnelshift_r(s_w[r >> 2], s_w[(r >> 2) + 1], 8 * (r & 3));
-}
-
 // The mechanically decoded code point of the lead in the low byte of X
 // (the lead, then the three bytes after it), as ops/utf8.classify's
 // ``cp``, branch-free: the lead's payload and three continuations' six
@@ -246,6 +226,109 @@ __device__ __forceinline__ uint32_t lead_cp(uint32_t X) {
   const uint32_t t = ((X & (0x7Fu >> k)) << 18) | ((X >> 8 & 0x3F) << 12) |
                      ((X >> 16 & 0x3F) << 6) | (X >> 24 & 0x3F);
   return k > 4 ? 0u : t >> (24 - 6 * (k > 1 ? k : 1));
+}
+
+// ---- The data warps of a block with a look-back warp (compose32.cu) -------
+//
+// A block of T data threads (warps 0 .. T / 32 - 1) and one look-back warp
+// after them. The data threads' barriers and reductions run on barrier 1
+// with T threads, so the look-back warp runs on through them.
+
+template <int T>
+__device__ __forceinline__ void data_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(T) : "memory");
+}
+
+// barrier; whether p holds in any data thread
+template <int T>
+__device__ __forceinline__ int data_sync_or(int p) {
+  int r;
+  asm volatile(
+      "{\n .reg .pred a, b;\n setp.ne.s32 a, %1, 0;\n bar.red.or.pred b, 1, %2, a;\n"
+      " selp.s32 %0, 1, 0, b;\n}"
+      : "=r"(r)
+      : "r"(p), "n"(T)
+      : "memory");
+  return r;
+}
+
+// barrier; the data threads in which p holds
+template <int T>
+__device__ __forceinline__ int data_sync_count(int p) {
+  int r;
+  asm volatile(
+      "{\n .reg .pred a;\n setp.ne.s32 a, %1, 0;\n bar.red.popc.u32 %0, 1, %2, a;\n}"
+      : "=r"(r)
+      : "r"(p), "n"(T)
+      : "memory");
+  return r;
+}
+
+// exclusive scan of v over the data threads; *total gets their sum
+template <int T>
+__device__ __forceinline__ int data_excl_scan(int v, int* s, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(FULL, inc, d);
+    if (lane >= d) inc += y;
+  }
+  if (lane == 31) s[warp] = inc;
+  data_sync<T>();
+  int base = 0, tot = 0;
+#pragma unroll
+  for (int k = 0; k < T / 32; ++k) {
+    const int x = s[k];
+    base += k < warp ? x : 0;
+    tot += x;
+  }
+  data_sync<T>();
+  *total = tot;
+  return base + inc - v;
+}
+
+template <int T>
+__device__ __forceinline__ unsigned long long data_min64(unsigned long long v,
+                                                         unsigned long long* s) {
+  v = warp_min_u64(v);
+  if ((threadIdx.x & 31) == 0) s[threadIdx.x >> 5] = v;
+  data_sync<T>();
+  unsigned long long r = s[0];
+#pragma unroll
+  for (int k = 1; k < T / 32; ++k) r = s[k] < r ? s[k] : r;
+  data_sync<T>();
+  return r;
+}
+
+template <int T>
+__device__ __forceinline__ int data_sum(int v, int* s) {
+  v = __reduce_add_sync(FULL, v);
+  if ((threadIdx.x & 31) == 0) s[threadIdx.x >> 5] = v;
+  data_sync<T>();
+  int r = 0;
+#pragma unroll
+  for (int k = 0; k < T / 32; ++k) r += s[k];
+  data_sync<T>();
+  return r;
+}
+
+// out[lo, hi) (bytes) zeroed by the data threads, 16 bytes a store where
+// aligned
+template <int T>
+__device__ __forceinline__ void data_zero(uint8_t* __restrict__ out, long long lo,
+                                          long long hi) {
+  if (lo >= hi) return;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(out);
+  long long c0 = (long long)(((a + lo + 15) & ~(uintptr_t)15) - a);  // first aligned byte
+  long long c1 = (long long)(((a + hi) & ~(uintptr_t)15) - a);       // end of whole chunks
+  if (c0 > hi) c0 = hi;
+  if (c1 < c0) c1 = c0;
+  const int tid = threadIdx.x;
+  for (long long k = lo + tid; k < c0; k += T) out[k] = 0;
+  for (long long k = c1 + tid; k < hi; k += T) out[k] = 0;
+  uint4* o = reinterpret_cast<uint4*>(out + c0);
+  for (long long k = tid; k < (c1 - c0) / 16; k += T) __stcs(o + k, make_uint4(0, 0, 0, 0));
 }
 
 }  // namespace su

@@ -59,6 +59,7 @@ SIGNATURES = {
     "utf32_first_bad": (_P, _I64, _P, _P),
     "utf32_count": (_P, _I64, _I32, _P, _P),
     "compose32": (_P, _I64, _I64, _I32, _P, _P, _P, _P, _P),
+    "compose32_grid": (_P, _I64, _I64, _I32, _I32, _P, _P, _P, _P, _P),
     "composex_count": (_P, _I64, _I32, _P, _P, _P, _P),
     "composex_emit": (_P, _I64, _I32, _P, _P, _P),
     "latin1_utf8_count": (_P, _I64, _I32, _P, _P),

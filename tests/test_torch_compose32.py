@@ -136,7 +136,7 @@ def test_compose_matches_butterfly32_on_valid_input(name):
 # the fold of the plain per-tile triples must give the compose result's
 # total, first error and err_len, and the JAX package's first error.
 
-TT = tc32.TILE  # 16 KiB look-back tiles
+TT = tc32.TILE  # the look-back tiles (8 KiB)
 NO_EVENT = (2**31 - 1) << 8
 
 
@@ -208,5 +208,38 @@ def test_tile_aggregates_on_the_cpu_are_the_plain_ones():
 
 @pytest.mark.parametrize("name", ["valid-many-tiles", "ff@tile-1", "lead4-cut@len"])
 def test_compose_matches_scatter_engine_across_lookback_tiles(name):
-    """The compose contract on buffers of several 16 KiB tiles."""
+    """The compose contract on buffers of several look-back tiles."""
     _compare(LOOKBACK_CASES[name], garbage=True)
+
+
+def _text_with(size: int, marks: dict) -> bytes:
+    """Valid text with no 4-byte sequence, ``size`` bytes, with the
+    sequence ``marks[pos]`` at each byte ``pos``."""
+    src = "ab é 東 Жм ".encode() * (size // 10 + 1)
+    out, at = b"", 0
+    for pos in sorted(marks) + [size]:
+        piece = src[:pos - at].decode("utf-8", "ignore").encode()
+        out += piece + b"a" * (pos - at - len(piece)) + marks.get(pos, b"")
+        at = pos + len(marks.get(pos, b""))
+    return out
+
+
+def test_tile_paths_on_the_cpu_are_the_plain_count():
+    """_tile_paths on a CPU tensor: per tile, its data warps with no
+    4-byte lead among their bytes and the byte before them; none on a
+    tile the fast check flags."""
+    W = TT // tc32.WARPS  # bytes a warp
+    lead4 = "\U0001f642".encode()
+    size = 6 * TT + 999
+    data = bytearray(_text_with(size, {TT + 2 * W - 1: lead4,  # warps 1 and 2 of tile 1
+                                       3 * TT + 5 * W + 100: lead4,  # warp 5 of tile 3
+                                       5 * TT + W - 2: lead4}))  # warp 0 of tile 5
+    data[4 * TT + 3 * W] = 0xFF  # tile 4 flagged
+    want = [tc32.WARPS] * 7
+    want[1] -= 2
+    want[3] -= 1
+    want[4] = 0
+    want[5] -= 1
+    x = torch.from_numpy(np.frombuffer(bytes(data), np.uint8).copy())
+    assert tc32._tile_paths(x, size).tolist() == want
+    assert tc32._tile_paths(x, 0).numel() == 0

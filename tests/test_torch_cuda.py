@@ -1315,6 +1315,107 @@ def test_compose32_fast_check_misses_no_event(cuda, off):
     torch.cuda.synchronize()
 
 
+_C32_TEXT = "ab é 東 Жм ".encode() * 4000  # no 4-byte sequence, as the utf32 cell's text
+_C32_ASTRAL = "ab é \U0001f642 東 ".encode() * 4000
+
+
+def _c32_text(size: int, astral: bool = False) -> bytes:
+    """Text (with 4-byte sequences when ``astral``) cut to ``size`` bytes
+    at a character start, filled up with 'a'."""
+    src = _C32_ASTRAL if astral else _C32_TEXT
+    d = (src * (size // len(src) + 1))[:size].decode("utf-8", "ignore").encode()
+    return d + b"a" * (size - len(d))
+
+
+def _c32_at(size: int, pos: int, seq: bytes, astral: bool = False) -> bytes:
+    """Valid text of ``size`` bytes with ``seq`` at byte ``pos``."""
+    return _c32_text(pos, astral) + seq + _c32_text(size - pos - len(seq), astral)
+
+
+def _compose32_pipeline_cases():
+    """name -> [(bytes, length, n), ...] at compose32's tile size: the
+    bytes fill the start of an n-byte buffer whose rest is seeded garbage."""
+    K, W = T32, T32 // kc32.WARPS  # bytes a tile, a warp
+    size = 6 * K + 777
+    base, astral = _c32_text(size), _c32_text(size, True)
+    lead4 = "\U0001f642".encode()
+
+    def put(data: bytes, pos: int, seq: bytes) -> bytes:
+        return data[:pos] + seq + data[pos + len(seq):]
+
+    cases = {
+        # an error in tile t + 1 while tile t's prefix is pending, and in
+        # the first and the last tile; an error cut short at the length
+        "err_next_tile": [(put(base, K + p, b"\xff"), size, size + 64)
+                          for p in (0, 1, K // 2, K - 1)],
+        "err_first_tile": [(put(base, p, s), size, size + 7)
+                           for p, s in ((0, b"\x80"), (9, b"\xed\xa0\x80"), (K - 2, b"\xc0\xaf"))],
+        "err_last_tile": [(put(base, size - p, s), size, size + 5)
+                          for p, s in ((1, b"\xe6"), (3, b"\xf0\x9f"), (300, b"\xf8"))],
+        # a valid 4-byte sequence across a tile's edge, or a warp's (the
+        # warp after it decodes each lead on its own), on text whose other
+        # warps accumulate
+        "lead4_tile_edge": [(_c32_at(size, t * K - q, lead4), size, size + 3)
+                            for t in (1, 2, 5) for q in (1, 2, 3)]
+                           + [(_c32_at(size, 2 * K - 1, lead4, True), size, size + 3)],
+        "lead4_warp_edge": [(_c32_at(size, K + j * W - q, lead4), size, size + 3)
+                            for j in (1, 3, 7) for q in (1, 2, 3, 4)],
+        # a 4-byte lead at the length (its continuations past it)
+        "lead4_at_length": [(base[: 2 * K + 99] + lead4, 2 * K + 100, 2 * K + 104),
+                            (astral[: 3 * K - 1] + lead4, 3 * K, 3 * K + 9)],
+        # 4-byte sequences throughout: the decode of each lead
+        "astral": [(astral, size, size + 11)],
+        # n far above the length: the zero tail spans many tiles
+        "zero_tail": [(base[: 3 * K + 5], 3 * K + 5, 40 * K)],
+    }
+    # the ragged last tile ending in each of its 16-byte chunks
+    cases["ragged_end"] = [(base[: K + 16 * c + c % 16], K + 16 * c + c % 16,
+                            K + 16 * c + c % 16 + 16) for c in range(K // 16)]
+    return cases
+
+
+@pytest.mark.parametrize("blocks", [1, 0], ids=["one_block", "whole_grid"])
+@pytest.mark.parametrize("case", ["astral", "err_first_tile", "err_last_tile", "err_next_tile",
+                                  "lead4_at_length", "lead4_tile_edge", "lead4_warp_edge",
+                                  "ragged_end", "zero_tail"])
+def test_compose32_pipeline_matches_plain_version(cuda, case, blocks):
+    """Each case's buffers through csrc/compose32.cu's tile pipeline (on
+    one block, or as many as are resident) against to_utf32_compose_ref:
+    the whole int32[n] buffer (zeros past the total included) and total,
+    err_any, err_pos, err_code, err_len."""
+    for i, (data, length, n) in enumerate(_compose32_pipeline_cases()[case]):
+        buf = np.random.default_rng(n).integers(0, 256, n).astype(np.uint8)
+        buf[: len(data)] = np.frombuffer(data, np.uint8)[:n]
+        x = torch.from_numpy(buf).to(cuda)
+        junk = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+        del junk  # a zero the kernel failed to write shows
+        got = kc32._on_blocks(x, length, blocks)
+        assert _same(got, kc32.to_utf32_compose_ref(x, length)), (case, i, length)
+    torch.cuda.synchronize()
+
+
+def test_compose32_tile_paths(cuda):
+    """Each tile's count of warps that took the accumulating decode, read
+    from the launch's scratch, against the plain count: every warp of
+    every tile on text with no 4-byte sequence (the utf32 cell's kind),
+    fewer on astral text, none on a tile the fast check flags."""
+    size = 40 * T32 + 123
+    plain = _c32_text(size)
+    bad = plain[:5 * T32 + 7] + b"\xff" + plain[5 * T32 + 8:]
+    for data, kind in ((plain, "all"), (_c32_text(size, True), "fewer"), (bad, "flagged")):
+        x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda)
+        got = kc32._tile_paths(x, size).cpu()
+        assert torch.equal(got, kc32.tile_paths_ref(x.cpu(), size)), kind
+        full = got.numel() * kc32.WARPS
+        if kind == "all":
+            assert int(got.sum()) == full
+        elif kind == "fewer":
+            assert int(got.sum()) < full // 2
+        else:
+            assert int(got[5]) == 0 and int(got.sum()) == full - kc32.WARPS
+    torch.cuda.synchronize()
+
+
 # -- compose8 (#34-#35) as one look-back launch ------------------------------
 
 T8 = kc8.TILE  # units per compose8 tile
