@@ -15,16 +15,22 @@
 // makes one atomic update (atomicMin on the 64-bit key pos << 8 | code,
 // atomicAdd on the count). Bytes at/after `length` read as zero, so a
 // sequence cut at the length reports TOO_SHORT at its lead.
+//
+// Given a counter `exact`, the kernel also adds to it the chunks that ran
+// the event lattice (those holding an in-range byte >= 0x80), one
+// atomicAdd a warp; every launch counts them in registers alike.
 #include "utf8.cuh"
 
 namespace {
 
 __global__ void __launch_bounds__(256)
     first_event_kernel(const uint8_t* __restrict__ b, long long length,
-                       unsigned long long* __restrict__ out) {
+                       unsigned long long* __restrict__ out,
+                       unsigned long long* __restrict__ exact) {
   const bool vec = (reinterpret_cast<uintptr_t>(b) & 15) == 0;
   const long long chunks = (length + 15) / 16;
   unsigned long long key = su::NO_EVENT;
+  unsigned ran = 0;  // chunks this thread ran the lattice on
   for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        k < chunks; k += (long long)gridDim.x * blockDim.x) {
     const long long p0 = k * 16;
@@ -34,6 +40,7 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
     for (int j = 0; j < 16; ++j) any_high |= c[4 + j];
     if (any_high < 0x80) continue;  // events sit only on bytes >= 0x80
+    ++ran;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       if (p0 + j < length) {
@@ -46,6 +53,10 @@ __global__ void __launch_bounds__(256)
   }
   key = su::warp_min_u64(key);
   if ((threadIdx.x & 31) == 0 && key != su::NO_EVENT) atomicMin(out, key);
+  if (exact) {
+    ran = __reduce_add_sync(su::FULL, ran);
+    if ((threadIdx.x & 31) == 0 && ran) atomicAdd(exact, (unsigned long long)ran);
+  }
 }
 
 // Each warp walks 32 consecutive 16-byte chunks per step, all lanes in
@@ -140,12 +151,14 @@ __global__ void __launch_bounds__(256)
 
 }  // namespace
 
-// out_key: one int64 on the device set to BIG << 8. Returns
-// cudaGetLastError().
+// out_key: one int64 on the device set to BIG << 8. exact_chunks: null, or
+// one int64 on the device that the chunks which ran the lattice are added
+// to. Returns cudaGetLastError().
 extern "C" int utf8_first_event(const uint8_t* b, long long length,
-                                unsigned long long* out_key, void* stream) {
+                                unsigned long long* out_key,
+                                unsigned long long* exact_chunks, void* stream) {
   first_event_kernel<<<su::grid_for((length + 15) / 16), 256, 0,
-                       (cudaStream_t)stream>>>(b, length, out_key);
+                       (cudaStream_t)stream>>>(b, length, out_key, exact_chunks);
   return (int)cudaGetLastError();
 }
 

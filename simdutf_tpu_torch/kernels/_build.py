@@ -42,7 +42,7 @@ _I32 = ctypes.c_int
 #: cudaError_t)
 SIGNATURES = {
     "census_utf8": (_P, _I64, _I64, _P, _P),
-    "utf8_first_event": (_P, _I64, _P, _P),
+    "utf8_first_event": (_P, _I64, _P, _P, _P),
     "utf8_count": (_P, _I64, _I32, _P, _P),
     "ascii_first_bad": (_P, _I64, _P, _P),
     "compose16": (_P, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P),

@@ -13,10 +13,12 @@ they run the plain versions beside them.
 
 Both Hopper kernels are streaming reads of the in-range bytes, so their
 floor is HBM bytes; the count reaches it, the first-event kernel is bound
-by its per-byte lattice work (PERF.md). The TPU kernels keep a running
-result in an output block across a sequential grid; Hopper blocks run in
-no order, so each warp reduces its threads and makes one atomic update (a
-64-bit atomicMin on the key pos << 8 | code, an atomicAdd on the count).
+by its per-byte lattice work (PERF.md), whose chunks it counts on the
+device while a profiler records (``trace.device_counter``). The TPU
+kernels keep a running result in an output block across a sequential
+grid; Hopper blocks run in no order, so each warp reduces its threads
+and makes one atomic update (a 64-bit atomicMin on the key
+pos << 8 | code, an atomicAdd on the count).
 
 Inputs are flat 1-D uint8 tensors, or int32 tensors of UTF-32 words; the
 TPU's (R + 64, 512) and (R, 512) row layouts are not needed here.
@@ -35,6 +37,10 @@ from .. import trace
 from ..ops.common import BIG, positions
 
 _MODES = {"count": 0, "utf16": 1, "latin1": 2}
+#: the trace's counts of the first-event kernel's 16-byte chunks: those in
+#: range, and those that ran its exact event lattice (held a byte >= 0x80)
+CHUNKS = "validate.chunks"
+EXACT_CHUNKS = "validate.exact_chunks"
 
 
 def utf8_first_event_len_ref(b: torch.Tensor, length: int):
@@ -45,17 +51,34 @@ def utf8_first_event_len_ref(b: torch.Tensor, length: int):
     return o8._first_error_from(o8.classify(b, length), length)
 
 
+def exact_chunks_ref(b: torch.Tensor, length: int) -> int:
+    """The 16-byte chunks of ``b[:length]`` that hold a byte >= 0x80: those
+    the first-event kernel runs its event lattice on."""
+    high = torch.nonzero(b[:length] >= 0x80).flatten() // 16
+    return int(torch.unique(high).numel())
+
+
 @trace.kernel
 def utf8_first_event_len(b: torch.Tensor, length: int):
     """Exact first UTF-8 error of ``b[:length]``; bytes at/after
     ``length`` read as zero, so a sequence cut at the length reports
     TOO_SHORT at its lead. Returns (pos, code) as 0-d int64 tensors on
-    ``b``'s device; pos == BIG and code == 0 when valid."""
+    ``b``'s device; pos == BIG and code == 0 when valid. While a profiler
+    records, counts the chunks in range and those that ran the event
+    lattice (:data:`CHUNKS`, :data:`EXACT_CHUNKS`), the latter on the
+    device; otherwise nothing is counted."""
     length = int(length)
     if _build.check_bytes(b, length) == "cpu":
+        if trace.recording():
+            trace.count(CHUNKS, (length + 15) // 16)
+            trace.count(EXACT_CHUNKS, exact_chunks_ref(b, length))
         return utf8_first_event_len_ref(b, length)
     key = torch.full((1,), BIG << 8, dtype=torch.int64, device=b.device)
-    _build.call("utf8_first_event", b.data_ptr(), length, key.data_ptr())
+    counter = trace.device_counter(EXACT_CHUNKS, b.device)
+    if counter is not None:
+        trace.count(CHUNKS, (length + 15) // 16)
+        counter = counter.data_ptr()
+    _build.call("utf8_first_event", b.data_ptr(), length, key.data_ptr(), counter)
     return key[0] >> 8, key[0] & 0xFF
 
 

@@ -22,6 +22,10 @@ trace's own clock beside the device rows. Nothing else turns it on.
   ``compose.fill_bytes``).
   :func:`recording` says whether a profiler records, for a site that
   computes what it counts only then.
+* :func:`device_counter` gives a counter that kernels add to on the
+  device (the first-event kernel's exact chunks), so that counting reads
+  nothing back inside a call: made anew when recording begins, read once
+  by :func:`snapshot` into ``counts[<name>]``.
 
 The layers: ``glue`` (``impl.py``: staging, results back on the host),
 ``route`` (each ``ops`` function that ``impl.py`` calls), ``kernel`` (each
@@ -67,7 +71,7 @@ class _Thread:
     :func:`snapshot` merges the aggregates of this generation's
     threads)."""
 
-    __slots__ = ("on", "stack", "gen", "spans", "syncs", "launches", "counts")
+    __slots__ = ("on", "stack", "gen", "spans", "syncs", "launches", "counts", "devcounts")
 
     def __init__(self):
         self.on = False
@@ -77,6 +81,8 @@ class _Thread:
         self.syncs = 0
         self.launches: dict = {}
         self.counts: dict = {}
+        # (name, device) -> [int64[1] tensor, value last read, unread adds]
+        self.devcounts: dict = {}
 
 
 def _recording() -> bool:
@@ -120,6 +126,7 @@ def _thread() -> _Thread:
             t.syncs = 0
             t.launches = {}
             t.counts = {}
+            t.devcounts = {}
             _threads.append(t)
     return t
 
@@ -243,6 +250,23 @@ def count(name: str, k: int) -> None:
     counts[name] = counts.get(name, 0) + k
 
 
+def device_counter(name: str, device):
+    """While a profiler records, this recording's counter ``name`` on
+    ``device``: a one-element int64 tensor, zeros made at its first
+    request, that kernels add to on the device and that :func:`snapshot`
+    reads once, after the calls, into ``counts[name]``. None while no
+    profiler records."""
+    if not _recording():
+        return None
+    slots = _thread().devcounts
+    key = (name, str(torch.device(device)))
+    slot = slots.get(key)
+    if slot is None:
+        slot = slots[key] = [torch.zeros(1, dtype=torch.int64, device=device), 0, True]
+    slot[2] = True  # the caller launches with it: snapshot reads it again
+    return slot[0]
+
+
 #: whether the spans and counters record now (a profiler records)
 recording = _recording
 
@@ -260,7 +284,9 @@ def snapshot() -> dict:
     """What was recorded since recording last began, over every thread, as
     plain data: ``{"spans": {name: {"count", "total_ns", "self_ns",
     "parents": {enclosing span name or None: count}}}, "syncs": int,
-    "launches": {entry: count}, "counts": {name: int}}``."""
+    "launches": {entry: count}, "counts": {name: int}}``. ``counts`` holds
+    the device counters too, each read from the device (a wait for the
+    work queued before the read) the first time after a call used it."""
     spans: dict = {}
     syncs = 0
     launches: dict = {}
@@ -273,6 +299,11 @@ def snapshot() -> dict:
             launches[entry] = launches.get(entry, 0) + k
         for name, k in list(t.counts.items()):
             counts[name] = counts.get(name, 0) + k
+        for (name, _), slot in list(t.devcounts.items()):
+            if slot[2]:
+                slot[2] = False
+                slot[1] = int(slot[0].item())
+            counts[name] = counts.get(name, 0) + slot[1]
         for name, (c, tot, self_ns, parents) in list(t.spans.items()):
             agg = spans.setdefault(name, {"count": 0, "total_ns": 0, "self_ns": 0,
                                           "parents": {}})

@@ -1810,3 +1810,112 @@ def test_utf8_to_utf32_cell_entry_at_full_size(cuda, planted):
     if not planted:
         assert not w[len(words):].any()
     torch.cuda.synchronize()
+
+
+def _bench_modules():
+    """``bench_torch``'s harness, importable from the checkout's root."""
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from bench_torch import harness
+
+    return harness
+
+
+@pytest.mark.parametrize("planted", [False, True], ids=["valid", "error_near_end"])
+def test_validate_utf8_cell_entry_at_full_size(cuda, planted):
+    """The ``validate_utf8.mixed_64m`` cell's entry,
+    ``ops.utf8.validate_with_errors``, on one full 64 MiB buffer of the
+    cell's text, staged as the cell stages it, against the benchmark's
+    plain reference; with a 0xFF planted at a character start near the
+    end, its code and position."""
+    harness = _bench_modules()
+    from bench_torch.configs import validate_utf8_ref as ref
+    from simdutf_tpu_torch import impl
+
+    gen = harness.load_module(harness.HERE / "traffic" / "text.py", "bench_torch.traffic.text")
+    data = gen.generate(harness.load_cell("validate_utf8.mixed_64m").traffic, 2**31 + 24,
+                        cuda)[0]
+    if planted:
+        k = len(data) - 4099
+        while data[k] & 0xC0 == 0x80:
+            k -= 1
+        data[k] = 0xFF
+    buf, n = impl._pad(data)
+    x, n = impl.to_device(buf, n, cuda)
+    got = tuple(impl._scalars(*o8.validate_with_errors(x, n)))
+    want = ref.validate(data.tobytes())
+    assert got == want and (want[0] != 0) == planted
+    torch.cuda.synchronize()
+
+
+def _first_event_text(name: str) -> bytes:
+    rng = np.random.default_rng(24)
+    mixed = "".join(rng.choice(list("abc  éЖ東🙂"), 300_000)).encode()
+    if name == "error":
+        err = bytearray(mixed)
+        err[len(err) // 2] = 0xFF
+        return bytes(err)
+    return {"mixed": mixed, "ascii": b"plain ascii text " * 20_000, "empty": b""}[name]
+
+
+@pytest.mark.parametrize("name", ["mixed", "ascii", "error", "empty"])
+def test_first_event_counts_exact_chunks_on_device(cuda, monkeypatch, name):
+    """Under a profiler the first-event kernel adds the chunks that ran its
+    lattice to the trace's device counter, equal to the plain path's
+    count; its results are those of an untraced call, which launches with
+    no counter; and a traced call makes the torch operations and
+    allocations of an untraced one, but for the counter's zeros that a
+    recording's first call makes."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from simdutf_tpu_torch import trace
+    from simdutf_tpu_torch.kernels import _build
+
+    class Ops(TorchDispatchMode):
+        """The torch operations a call makes, views left out."""
+
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                self.names.append(func.name())
+            return func(*args, **(kwargs or {}))
+
+    data = _first_event_text(name)
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda)
+    L = len(data)
+    want = [t.item() for t in kv.utf8_first_event_len_ref(x.cpu(), L)]
+    exact = kv.exact_chunks_ref(x.cpu(), L)
+    counters = []  # each launch's counter argument
+    call = _build.call
+    monkeypatch.setattr(_build, "call", lambda name, *a: counters.append(a[-1]) or call(name, *a))
+
+    def allocated():
+        return torch.cuda.memory_stats()["allocation.all.allocated"]
+
+    def ops_allocs_results():
+        before = allocated()
+        with Ops() as ops:
+            got = kv.utf8_first_event_len(x, L)
+        return ops.names, allocated() - before, [t.item() for t in got]
+
+    untraced = ops_allocs_results()
+    assert untraced[2] == want and untraced[0]
+    for calls in (1, 3):
+        trace.span("simdutf.x")  # a call with no profiler: the next record begins anew
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            names, allocs, got = ops_allocs_results()
+            assert sorted(names) == sorted(untraced[0] + ["aten::zeros"])
+            assert (allocs, got) == (untraced[1] + 1, untraced[2])
+            for _ in range(calls - 1):
+                assert ops_allocs_results() == untraced
+        assert trace.snapshot()["counts"] == {kv.CHUNKS: calls * ((L + 15) // 16),
+                                              kv.EXACT_CHUNKS: calls * exact}
+    assert counters[0] is None and None not in counters[1:] and len(counters) == 5

@@ -332,3 +332,51 @@ def test_route_span_recorded(route, method, data):
     assert snap["spans"][f"simdutf.route.{route}"]["count"] == 1
     assert snap["spans"]["simdutf.glue.stage"]["count"] >= 1
     assert snap["syncs"] >= 1
+
+
+def test_device_counter_absent_when_nothing_records():
+    """With no profiler, ``device_counter`` gives None and keeps nothing;
+    the snapshot holds no such count."""
+    trace.reset()
+    assert trace.device_counter("dev.x", "cpu") is None
+    assert "dev.x" not in trace.snapshot()["counts"]
+
+
+def test_device_counter_sums_over_calls_and_starts_anew():
+    """A recording's first request makes the counter, zeroed, later
+    requests give the same tensor, and the snapshot reads the adds of
+    every call; the next recording starts from a new counter."""
+    def calls(adds):
+        got = []
+        for k in adds:
+            c = trace.device_counter("dev.x", "cpu")
+            c += k  # what a kernel adds on the device
+            got.append(c)
+        assert all(c is got[0] for c in got)
+        return got[0]
+
+    trace.span("simdutf.x")  # a call with no profiler ends any record
+    first_counter, first, _ = profiled(lambda: calls([3, 4, 5]))
+    assert first["counts"] == {"dev.x": 12}
+    trace.span("simdutf.x")
+    second_counter, second, _ = profiled(lambda: calls([2]))
+    assert second["counts"] == {"dev.x": 2} and second_counter is not first_counter
+
+
+def test_device_counter_read_once_a_use(monkeypatch):
+    """``snapshot`` reads a counter from the device once after the calls
+    that used it, not at every snapshot."""
+    reads = []
+    item = torch.Tensor.item
+    monkeypatch.setattr(torch.Tensor, "item", lambda t: reads.append(1) or item(t))
+    trace.span("simdutf.x")
+    with profile(activities=[ProfilerActivity.CPU]):
+        c = trace.device_counter("dev.y", "cpu")
+        c += 6
+    assert trace.snapshot()["counts"] == {"dev.y": 6}
+    assert trace.snapshot()["counts"] == {"dev.y": 6}
+    assert reads == [1]
+    with profile(activities=[ProfilerActivity.CPU]):  # no call between: the same record
+        trace.device_counter("dev.y", "cpu").add_(1)
+    assert trace.snapshot()["counts"] == {"dev.y": 7}
+    assert reads == [1, 1]
