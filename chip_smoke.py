@@ -13,6 +13,10 @@
     python3 chip_smoke.py --census-times [--root DIR]
                                  # the same for census_utf8 on 64 MiB of
                                  # ASCII, mixed, é, 東 and 🙂 text
+    python3 chip_smoke.py --first-event-times [--against DIR]
+                                 # utf8_first_event alone by events on six
+                                 # inputs: this tree's csrc/validate.cu,
+                                 # and DIR's in turns in the same process
 
 Nine paths, each driven through the port's own api
 (``simdutf_tpu_torch.api`` on "cuda"): UTF-8 -> UTF-16LE/BE with UTF-8
@@ -2926,6 +2930,140 @@ def census_times_phase(card: str, big: int = CORPUS_BYTES) -> dict:
     return out
 
 
+def _first_event_lib(tree: str, tag: str):
+    """``tree``'s csrc/validate.cu built alone, with ``_build``'s flags,
+    into build/first_event_times/<tag>/ and loaded: (library, ptxas's
+    report of first_event_kernel, its SASS instruction count)."""
+    import ctypes
+    import re
+    import shutil
+    from pathlib import Path
+
+    from simdutf_tpu_torch.kernels import _build
+
+    src = Path(tree) / "simdutf_tpu_torch" / "csrc" / "validate.cu"
+    out = Path(__file__).resolve().parent / "build" / "first_event_times" / tag
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    obj, so = out / "validate.o", out / "libvalidate.so"
+    r = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o", str(obj)],
+                       capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"nvcc {src}: {r.stderr[-2000:]}")
+    lines = r.stderr.splitlines()
+    at = next((i for i, ln in enumerate(lines)
+               if "Compiling entry function" in ln and "first_event_kernel" in ln), None)
+    ptxas = " | ".join(ln.split(":", 1)[-1].strip() for ln in lines[at + 1:at + 4]) \
+        if at is not None else "not reported"
+    r = subprocess.run([nvcc, *_build.LINK_FLAGS, str(obj), "-o", str(so)],
+                       capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"nvcc link {so}: {r.stderr[-2000:]}")
+    sass = None
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if os.path.exists(cuobjdump):
+        dump = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True,
+                              timeout=600).stdout
+        for part in dump.split("Function : ")[1:]:
+            if part.split()[0].find("first_event_kernel") >= 0:
+                sass = len(re.findall(r"/\*[0-9a-f]{4,}\*/ ", part))
+    lib = ctypes.CDLL(str(so))
+    fn = lib.utf8_first_event
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn, ptxas, sass
+
+
+def first_event_times_phase(card: str, against: str | None, big: int = CORPUS_BYTES,
+                            turns: int = 6, launches: int = 200) -> dict:
+    """utf8_first_event alone, µs a launch by CUDA events, of this tree's
+    csrc/validate.cu and, given ``against``, of that tree's, each built
+    into a library of its own and loaded into this process, in turns
+    (this, that, that, this, ...) on the same device buffers: the cell's
+    text (validate_utf8.mixed_64m's generator), the smoke corpus (emoji
+    and seven scripts), all-ASCII text, the card tests' small mixed text,
+    uniformly random bytes, and the cell's text with a 0xFF in its last
+    MiB. Each launch writes a key of its own (no fill in the window); the
+    first must equal the plain version's (pos, code). Also the chunks each
+    counts into a counter, ptxas's registers and spills, and the SASS
+    instructions of first_event_kernel."""
+    import numpy as np
+    import torch
+
+    import bench
+    from simdutf_tpu_torch import impl
+    from simdutf_tpu_torch.kernels import validate as kv
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from bench_torch import harness
+
+    gen = harness.load_module(harness.HERE / "traffic" / "text.py", "bench_torch.traffic.text")
+    cell = gen.generate(harness.load_cell("validate_utf8.mixed_64m").traffic, 2500000001,
+                        "cpu")[0]
+    planted = cell.copy()
+    k = len(planted) - 512 * 1024
+    while planted[k] & 0xC0 == 0x80:
+        k -= 1
+    planted[k] = 0xFF
+    rng = np.random.default_rng(24)
+    small = "".join(rng.choice(list("abc  éЖ東🙂"), 300_000)).encode()
+    inputs = {"cell": cell, "smoke": np.frombuffer(bench.mixed_corpus(big), np.uint8),
+              "ascii": np.frombuffer(class_corpus("a", big), np.uint8),
+              "small_mixed": np.frombuffer(small, np.uint8),
+              "random": np.random.default_rng(25).integers(0, 256, big, dtype=np.uint8),
+              "cell_error_last_mib": planted}
+    trees = {"change": os.path.dirname(os.path.abspath(__file__))}
+    if against:
+        trees["parent"] = os.path.abspath(against)
+    libs = {}
+    for tag, tree in trees.items():
+        fn, ptxas, sass = _first_event_lib(tree, tag)
+        libs[tag] = fn
+        log(f"first_event_kernel ({tag}, {tree}): ptxas {ptxas}; {sass} SASS instructions")
+    order = list(libs) + list(libs)[::-1]
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {"build": {}, "inputs": {}}
+    for name, data in inputs.items():
+        x, L = impl.to_device(*impl._pad(np.ascontiguousarray(data)), "cuda")
+        want = [t.item() for t in kv.utf8_first_event_len_ref(x, L)]
+        keys = torch.full((launches,), kv.BIG << 8, dtype=torch.int64, device="cuda")
+        counter = torch.zeros(1, dtype=torch.int64, device="cuda")
+        us = {tag: [] for tag in libs}
+        res = {}
+        for tag, fn in libs.items():
+            check(fn(x.data_ptr(), L, keys.data_ptr(), counter.data_ptr(), stream) == 0,
+                  f"utf8_first_event ({tag}) launch on {name}")
+            torch.cuda.synchronize()
+            key = int(keys[0])
+            check([key >> 8, key & 0xFF] == want,
+                  f"utf8_first_event ({tag}) on {name}: {[key >> 8, key & 0xFF]} != {want}")
+            res[tag] = int(counter[0])
+            counter.zero_()
+        for _ in range(turns // 2):
+            for tag in order:
+                keys.fill_(kv.BIG << 8)
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for i in range(launches):
+                    libs[tag](x.data_ptr(), L, keys.data_ptr() + 8 * i, None, stream)
+                end.record()
+                end.synchronize()
+                us[tag].append(start.elapsed_time(end) * 1e3 / launches)
+                check(int(keys[launches - 1]) == int(keys[0]), f"{tag} on {name}: keys differ")
+        out["inputs"][name] = {
+            "bytes": L, "want": want, "bound_us": L / PEAK_BYTES_PER_S * 1e6,
+            "exact_chunks": res, "chunks": (L + 15) // 16,
+            **{f"{tag}_us": sorted(v) for tag, v in us.items()},
+            **{f"{tag}_median_us": statistics.median(v) for tag, v in us.items()}}
+        log(f"time utf8_first_event on {name} ({L} B, first error {want}): " + ", ".join(
+            f"{tag} {statistics.median(v):.2f} us (turns {min(v):.2f}-{max(v):.2f}; "
+            f"{res[tag]} exact chunks)" for tag, v in us.items())
+            + f"; bound {L / PEAK_BYTES_PER_S * 1e6:.2f} us [{card}]")
+        del x, keys
+    return out
+
+
 def timesp_phase(card: str, big: int = CORPUS_BYTES) -> tuple[dict, dict, dict]:
     """ms of each pallas-tier kernel and of its plain version at its path's
     shapes, device-resident: the UTF-8 SWAR scan on the 64 MiB corpus (the
@@ -3105,6 +3243,12 @@ def main() -> int:
     parser.add_argument("--census-times", action="store_true",
                         help="only build and time census_utf8 on five 64 MiB corpora "
                              "(census_times_phase); print one JSON line")
+    parser.add_argument("--first-event-times", action="store_true",
+                        help="only build and time utf8_first_event on six inputs "
+                             "(first_event_times_phase); print one JSON line")
+    parser.add_argument("--against", default=None,
+                        help="with --first-event-times: a parent tree unpacked beside this "
+                             "one, whose csrc/validate.cu is timed in turns in this process")
     parser.add_argument("--root", default=None,
                         help="import simdutf_tpu_torch from this checkout (with "
                              "--fixed-rate-times, --compact-times or --census-times: a "
@@ -3126,6 +3270,15 @@ def main() -> int:
         print(f"chip_smoke: run from a checkout of the repo ({exc})",
               file=sys.stderr)
         return 2
+    if args.first_event_times:
+        try:
+            name, card = device_phase()
+            times = first_event_times_phase(card, args.against)
+        except SmokeFailure as exc:
+            print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+            return 1
+        print(json.dumps({"first_event_times": times, "against": args.against, "card": card}))
+        return 0
     if args.fixed_rate_times or args.compact_times or args.census_times:
         what, phase = (("fixed_rate_times", fixed_rate_times_phase) if args.fixed_rate_times
                        else ("compact_times", compact_times_phase) if args.compact_times

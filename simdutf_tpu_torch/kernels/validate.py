@@ -12,9 +12,11 @@ a CUDA tensor the wrappers launch ``utf8_first_event`` /
 they run the plain versions beside them.
 
 Both Hopper kernels are streaming reads of the in-range bytes, so their
-floor is HBM bytes; the count reaches it, the first-event kernel is bound
-by its per-byte lattice work (PERF.md), whose chunks it counts on the
-device while a profiler records (``trace.device_counter``). The TPU
+floor is HBM bytes. The first-event kernel screens each chunk with SWAR
+flags that mark exactly the bytes its event lattice reports an event on
+(:func:`screen_flags_ref` is their plain twin) and runs the lattice only
+on the chunks they flag, which it counts on the device while a profiler
+records (``trace.device_counter``). The TPU
 kernels keep a running result in an output block across a sequential
 grid; Hopper blocks run in no order, so each warp reduces its threads
 and makes one atomic update (a 64-bit atomicMin on the key
@@ -38,7 +40,8 @@ from ..ops.common import BIG, positions
 
 _MODES = {"count": 0, "utf16": 1, "latin1": 2}
 #: the trace's counts of the first-event kernel's 16-byte chunks: those in
-#: range, and those that ran its exact event lattice (held a byte >= 0x80)
+#: range, and those that ran its exact event lattice (held a byte its
+#: screen flagged)
 CHUNKS = "validate.chunks"
 EXACT_CHUNKS = "validate.exact_chunks"
 
@@ -51,11 +54,77 @@ def utf8_first_event_len_ref(b: torch.Tensor, length: int):
     return o8._first_error_from(o8.classify(b, length), length)
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _leads(x: torch.Tensor):
+    """Bit 7 of each byte of the 32-bit words ``x``: leads of 2-, 3- and
+    4-byte sequences (C0..F7, E0..F7, F0..F7)."""
+    c0 = x & (x << 1)
+    e0 = c0 & (x << 2)
+    f0 = e0 & (x << 3)
+    f8 = f0 & (x << 4)
+    return [(y & ~f8) & _M32 for y in (c0, e0, f0)]
+
+
+def _funnel_l(lo: torch.Tensor, hi: torch.Tensor, s: int) -> torch.Tensor:
+    """CUDA's __funnelshift_l: the high word of (hi:lo) << s."""
+    return ((hi << s) | (lo >> (32 - s))) & _M32
+
+
+def _funnel_r(lo: torch.Tensor, hi: torch.Tensor, s: int) -> torch.Tensor:
+    """CUDA's __funnelshift_r: the low word of (hi:lo) >> s."""
+    return ((lo >> s) | (hi << (32 - s))) & _M32
+
+
+def screen_words_ref(x: torch.Tensor, xp: torch.Tensor, xn: torch.Tensor) -> torch.Tensor:
+    """The first-event kernel's SWAR screen (csrc/validate.cu ``screen``),
+    operation for operation on int64 tensors of 32-bit little-endian
+    words ``x`` with the words before (``xp``) and after (``xn``) each:
+    bit 7 of each byte set where su::event_key reports an event."""
+    lp, lx = _leads(xp), _leads(x)
+    cx = (x & ~(x << 1)) & _M32
+    cn = (xn & ~(xn << 1)) & _M32
+    covered = (_funnel_l(lp[0], lx[0], 8) | _funnel_l(lp[1], lx[1], 16)
+               | _funnel_l(lp[2], lx[2], 24))
+    orphan = cx & ~covered
+    cut = ((lx[0] & ~_funnel_r(cx, cn, 8)) | (lx[1] & ~_funnel_r(cx, cn, 16))
+           | (lx[2] & ~_funnel_r(cx, cn, 24)))
+    s1, s2, s3 = x << 1, x << 2, x << 3
+    c0c1 = x & s1 & ~s2 & ~((x & 0x1E1E1E1E) + 0x7F7F7F7F)
+    x1 = _funnel_r(x, xn, 8)
+    barred = ((x1 >> 5) & 0x01010101) * 0x0D
+    bad3 = x & s1 & s2 & ~s3 & ~(((x ^ barred) & 0x0F0F0F0F) + 0x7F7F7F7F)
+    up = ((x1 >> 4) | (x1 >> 5)) & 0x01010101
+    v = (x & 0x0F0F0F0F) + up
+    bad4 = x & s1 & s2 & s3 & ~((v + 0x7F7F7F7F) & ~(v + 0x7B7B7B7B))
+    return (orphan | cut | c0c1 | bad3 | bad4) & 0x80808080
+
+
+def screen_flags_ref(b: torch.Tensor, length: int) -> torch.Tensor:
+    """Plain twin of the first-event kernel's screen: bool[n], True on each
+    byte of ``b`` (uint8[n]) that the screen flags, with bytes at/after
+    ``length`` and before 0 read as zero (so they are never flagged)."""
+    n = b.shape[0]
+    pad = -n % 4
+    x = torch.cat([b.to(torch.int64), b.new_zeros(pad, dtype=torch.int64)])
+    x = torch.where(positions(n + pad, b.device) < length, x, torch.zeros_like(x))
+    x = x.view(-1, 4)
+    w = x[:, 0] | (x[:, 1] << 8) | (x[:, 2] << 16) | (x[:, 3] << 24)
+    zero = w.new_zeros(1)
+    f = screen_words_ref(w, torch.cat([zero, w[:-1]]), torch.cat([w[1:], zero]))
+    bits = torch.stack([(f >> (8 * j + 7)) & 1 for j in range(4)], dim=1)
+    return bits.flatten()[:n].bool()
+
+
 def exact_chunks_ref(b: torch.Tensor, length: int) -> int:
-    """The 16-byte chunks of ``b[:length]`` that hold a byte >= 0x80: those
-    the first-event kernel runs its event lattice on."""
-    high = torch.nonzero(b[:length] >= 0x80).flatten() // 16
-    return int(torch.unique(high).numel())
+    """The 16-byte chunks of ``b[:length]`` that hold a byte the screen
+    flags (:func:`screen_flags_ref`): those the first-event kernel runs
+    its event lattice on when it reads the whole buffer. On valid text
+    none; with an error the kernel stops at the first flagged chunks of
+    each warp, so it counts at most this many."""
+    flagged = torch.nonzero(screen_flags_ref(b, length)).flatten() // 16
+    return int(torch.unique(flagged).numel())
 
 
 @trace.kernel

@@ -1865,10 +1865,12 @@ def _first_event_text(name: str) -> bytes:
 @pytest.mark.parametrize("name", ["mixed", "ascii", "error", "empty"])
 def test_first_event_counts_exact_chunks_on_device(cuda, monkeypatch, name):
     """Under a profiler the first-event kernel adds the chunks that ran its
-    lattice to the trace's device counter, equal to the plain path's
-    count; its results are those of an untraced call, which launches with
-    no counter; and a traced call makes the torch operations and
-    allocations of an untraced one, but for the counter's zeros that a
+    lattice, those its screen flagged, to the trace's device counter: none
+    on valid text, as the plain path counts; with an error at least one
+    and at most the plain path's count, since each warp stops at its first
+    flagged chunks. Its results are those of an untraced call, which
+    launches with no counter; and a traced call makes the torch operations
+    and allocations of an untraced one, but for the counter's zeros that a
     recording's first call makes."""
     from torch.profiler import ProfilerActivity, profile
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -1893,6 +1895,7 @@ def test_first_event_counts_exact_chunks_on_device(cuda, monkeypatch, name):
     L = len(data)
     want = [t.item() for t in kv.utf8_first_event_len_ref(x.cpu(), L)]
     exact = kv.exact_chunks_ref(x.cpu(), L)
+    assert (exact > 0) == (name == "error")
     counters = []  # each launch's counter argument
     call = _build.call
     monkeypatch.setattr(_build, "call", lambda name, *a: counters.append(a[-1]) or call(name, *a))
@@ -1916,6 +1919,163 @@ def test_first_event_counts_exact_chunks_on_device(cuda, monkeypatch, name):
             assert (allocs, got) == (untraced[1] + 1, untraced[2])
             for _ in range(calls - 1):
                 assert ops_allocs_results() == untraced
-        assert trace.snapshot()["counts"] == {kv.CHUNKS: calls * ((L + 15) // 16),
-                                              kv.EXACT_CHUNKS: calls * exact}
+        counts = trace.snapshot()["counts"]
+        assert counts[kv.CHUNKS] == calls * ((L + 15) // 16)
+        if name == "error":
+            assert calls <= counts[kv.EXACT_CHUNKS] <= calls * exact
+        else:
+            assert counts[kv.EXACT_CHUNKS] == 0
     assert counters[0] is None and None not in counters[1:] and len(counters) == 5
+
+
+# -- the first-event kernel: errors planted where its reads and stops turn ----
+
+FE_CHUNKS = 32 * 4  # 16-byte chunks a warp of first_event_kernel reads a step
+FE_STEP = 16 * FE_CHUNKS
+FE_GRID = 132 * 4 * 8 * FE_STEP  # bytes the whole grid reads a step
+FE_BAD = {  # a bad sequence of each error code
+    "header_bits": b"\xff",
+    "too_short": b"\xe6\x9d\x41",
+    "too_long": b"\x41\x80",
+    "overlong": b"\xe0\x80\x80",
+    "too_large": b"\xf4\x90\x80\x80",
+    "surrogate": b"\xed\xa0\x80",
+}
+
+
+def _fe_base(n: int, dev) -> torch.Tensor:
+    """``n`` bytes of valid text, 1- to 4-byte characters in a 43-byte
+    unit, so a character starts at every place of a chunk somewhere."""
+    unit = ("aé東🙂Ж " * 3 + "xyzq").encode()
+    reps = -(-n // len(unit))
+    return torch.from_numpy(np.frombuffer(unit * reps, np.uint8)[:n].copy()).to(dev)
+
+
+def _fe_check(x: torch.Tensor, L: int):
+    """The kernel's (pos, code) against the plain version's, both on the
+    card."""
+    got = [t.item() for t in kv.utf8_first_event_len(x, L)]
+    want = [t.item() for t in kv.utf8_first_event_len_ref(x, L)]
+    assert got == want, (L, got, want)
+    return got
+
+
+def _fe_plant(x: torch.Tensor, at: int, bad: bytes, clean: bool = False) -> torch.Tensor:
+    """``x`` with ``bad`` written at ``at``; with ``clean``, the characters
+    within four bytes of it first replaced by ASCII, so that nothing but
+    ``bad`` is wrong there."""
+    y = x.clone()
+    if clean:
+        lo, hi = max(at - 4, 0), min(at + len(bad) + 4, y.shape[0])
+        while lo > 0 and int(y[lo]) & 0xC0 == 0x80:
+            lo -= 1
+        while hi < y.shape[0] and int(y[hi]) & 0xC0 == 0x80:
+            hi += 1
+        y[lo:hi] = 0x61
+    y[at:at + len(bad)] = torch.tensor(list(bad), dtype=torch.uint8, device=x.device)
+    return y
+
+
+@pytest.mark.parametrize("edge", ["chunk", "step", "grid_step"])
+@pytest.mark.parametrize("code", list(FE_BAD))
+def test_first_event_planted_at_every_offset_around_an_edge(cuda, code, edge):
+    """Each error code planted at every offset of 48 around a 16-byte
+    chunk's start, a warp step's start (32 x 4 chunks) and the start of
+    a warp's second grid-stride step, over mixed text: the kernel's
+    (pos, code) is the plain version's."""
+    at = {"chunk": 16 * 37, "step": 3 * FE_STEP, "grid_step": FE_GRID + FE_STEP}[edge]
+    base = _fe_base(at + 3 * FE_STEP, cuda)
+    found = set()
+    for d in range(-24, 24):
+        for clean in (False, True):
+            x = _fe_plant(base, at + d, FE_BAD[code], clean)
+            found.add(tuple(_fe_check(x, base.shape[0])))
+    assert len(found) > 24
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("edge", [16 * 37, 3 * FE_STEP, FE_GRID])
+def test_first_event_sequences_cut_at_the_length(cuda, edge):
+    """A 2-, 3- and 4-byte character cut 1-3 bytes in by a length at a
+    chunk, step or grid step's edge, its other bytes stored past the
+    length: TOO_SHORT at its lead, as the plain version reads it."""
+    base = _fe_base(edge + 64, cuda)
+    for ch in ("é", "東", "🙂"):
+        enc = ch.encode()
+        for cut in range(1, len(enc)):
+            x = _fe_plant(base, edge - cut, enc, clean=True)
+            assert _fe_check(x, edge) == [edge - cut, 2]
+            assert _fe_check(x, edge - cut + len(enc))[0] == kv.BIG
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("off", range(1, 16))
+def test_first_event_on_every_unaligned_base(cuda, off):
+    """A buffer whose base is ``off`` bytes past a 16-byte boundary: no
+    error, an error in the first chunk, in the middle and in the last
+    chunk, and a character cut at the length."""
+    n = 5 * FE_STEP + 37
+    buf = _fe_base(n + off, cuda)
+    cases = [buf, _fe_plant(buf, off + 3, b"\xff"), _fe_plant(buf, off, b"\x80"),
+             _fe_plant(buf, off + n // 2, b"\xed\xa0\x80"),
+             _fe_plant(buf, off + n - 2, b"\xf0\x9f")]
+    for y in cases:
+        x = y[off:off + n]
+        assert x.data_ptr() % 16 == off
+        _fe_check(x, n)
+        _fe_check(x, n - 5)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("where", ["first_chunk", "last_chunk"])
+def test_first_event_in_the_first_and_last_chunk(cuda, where):
+    """Every error code at each byte of the buffer's first or last chunk."""
+    n = 4 * FE_STEP + 16
+    base = _fe_base(n, cuda)
+    lo = 0 if where == "first_chunk" else n - 16
+    for bad in FE_BAD.values():
+        for at in range(lo, lo + 16):
+            _fe_check(_fe_plant(base, at, bad[: n - at]), n)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("steps", [1, 2])
+def test_first_event_two_errors_the_later_in_an_earlier_finishing_warp(cuda, steps):
+    """The first error in the last chunks of one warp's step, which it
+    reaches last, and a later error in the first chunk of the next warp's
+    step, which that warp reaches first and stops at; with ``steps`` 2
+    both in the warps' second grid-stride step. The kernel reports the
+    first."""
+    start = (steps - 1) * FE_GRID
+    base = _fe_base(start + 8 * FE_STEP, cuda)
+    first = start + FE_STEP - 16 + 9  # the last chunk of warp 0's step
+    x = _fe_plant(base, first, b"\xff", clean=True)
+    x = _fe_plant(x, start + FE_STEP + 2, b"\xc0\xaf", clean=True)
+    for extra in range(2, 8):  # and later errors in every later warp
+        x = _fe_plant(x, start + extra * FE_STEP, b"\x80")
+    assert _fe_check(x, x.shape[0]) == [first, 1]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("what", ["random", "early", "valid_then_random"])
+def test_first_event_stops_early_on_error_dense_input(cuda, what):
+    """Input with errors everywhere (uniform random bytes), an error near
+    the start of 20 MiB and errors after it in every step, and random
+    bytes after 12 MiB of valid text: the first error, as the plain
+    version finds it."""
+    n = 20 << 20
+    g = torch.Generator(device=cuda).manual_seed(25)
+    rnd = torch.randint(0, 256, (n,), generator=g, device=cuda, dtype=torch.int32)
+    rnd = rnd.to(torch.uint8)
+    if what == "random":
+        x = rnd
+    elif what == "early":
+        x = _fe_base(n, cuda)
+        x[FE_STEP + 5] = 0xFF
+        x[FE_STEP * 7::FE_STEP] = 0x80
+    else:
+        x = _fe_base(n, cuda)
+        x[12 << 20:] = rnd[12 << 20:]
+    _fe_check(x, n)
+    _fe_check(x, n - 3)
+    torch.cuda.synchronize()

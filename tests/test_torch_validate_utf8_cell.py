@@ -277,13 +277,19 @@ def test_route_is_traced(request, device_path):
     """A recorded call gives its route span with the kernel wrapper's span
     inside, the one ``impl.scalars`` sync, on the device path one
     ``utf8_first_event`` launch, and the chunk counts: on the plain path
-    those holding a byte >= 0x80, counted by hand; on the device path what
-    the kernel added to the device counter."""
+    those holding a byte the kernel's screen flags, counted by hand on text
+    with two bad bytes planted (each flagged alone: it replaces an ASCII
+    byte); on the device path what the kernel added to the device
+    counter."""
     lib = request.getfixturevalue("stubbed") if device_path else None
-    data = _data()
+    data = _data().copy()
+    a = [k for k in range(len(data)) if data[k] == ord("a")]
+    planted = [a[5], a[100]]
+    data[planted] = 0xFF
     x, n = _staged(data)
     got, snap = _traced(x, n)
-    assert got == [[0, len(data)]] * 2
+    # the stub finds no error; the plain path the first planted byte
+    assert got == ([[0, len(data)]] if device_path else [[1, planted[0]]]) * 2
     spans = snap["spans"]
     assert set(spans) == {ROUTE, KERNEL, SYNC}
     assert spans[ROUTE]["parents"] == {None: 2}
@@ -291,8 +297,8 @@ def test_route_is_traced(request, device_path):
     assert spans[SYNC]["parents"] == {None: 2}
     assert snap["syncs"] == 2
     chunks = (len(data) + 15) // 16
-    by_hand = sum(1 for k in range(chunks) if max(data[16 * k:16 * k + 16]) >= 0x80)
-    assert 0 < by_hand < chunks
+    by_hand = len({k // 16 for k in planted})
+    assert 0 < by_hand < chunks and by_hand == 2
     exact = ADDED if device_path else by_hand
     assert snap["counts"] == {kv.CHUNKS: 2 * chunks, kv.EXACT_CHUNKS: 2 * exact}
     assert snap["launches"] == ({"utf8_first_event": 2} if device_path else {})
@@ -302,13 +308,18 @@ def test_route_is_traced(request, device_path):
 
 
 def test_exact_chunks_ref_counts_in_range_bytes():
-    """A chunk counts when a byte >= 0x80 lies before the length; bytes
-    past it do not count."""
+    """A chunk counts when a byte the screen flags lies before the length:
+    each 0xC3 below is a lead cut short, flagged; a whole é in the last
+    chunk flags nothing, and cut by the length its lead is flagged; bytes
+    past the length do not count."""
     b = torch.zeros(64, dtype=torch.uint8)
     b[[3, 17, 18, 40]] = 0xC3
+    b[50], b[51] = 0xC3, 0xA9
     assert kv.exact_chunks_ref(b, 64) == 3
     assert kv.exact_chunks_ref(b, 40) == 2
     assert kv.exact_chunks_ref(b, 0) == 0
+    assert kv.exact_chunks_ref(b, 51) == 4
+    assert kv.exact_chunks_ref(b, 52) == 3
 
 
 def test_same_torch_ops_on_every_path(stubbed):
